@@ -1,0 +1,258 @@
+"""modutils on the PyTorch port: the modset lifecycle tool with ``-a``,
+``-x`` and ``-P`` scanning through ``modimizer_tpu_torch``'s scanner.
+
+Same ordered-command surface and output text as ``modimizer_tpu.cli.
+modutils`` (and the reference modutils.c); the jax-free helpers are imported
+from there.  Every input size goes through the streaming scanner: the JAX
+package's sharded device count is not ported, and its output is
+byte-identical either way.
+
+    python -m modimizer_tpu_torch.cli.modutils -c 26 16 16 17 -a reads.fa -w X.mod
+"""
+
+import sys
+
+import numpy as np
+import torch
+
+from modimizer_tpu.cli.common import Args, OutFile, cli_guard, die, finish
+from modimizer_tpu.cli.modutils import (_est_stream_len, depth_histogram,
+                                        report_depths, usage)
+from modimizer_tpu.core.modset import Modset
+from modimizer_tpu.core.seqhash import Seqhash
+from modimizer_tpu.io import seqio
+from modimizer_tpu.utils.timers import Timer
+
+from ..ops.seqhash import ModimizerScanner
+
+
+def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
+                      is10x=False) -> bool:
+    """modutils addSequenceFile (modutils.c:33-51).  FASTA/FASTQ inputs at
+    or above the scanner's host threshold take the parse-ahead streaming
+    path (parsing overlaps the device scan and the table replay); the rest
+    read the whole file and go through scan_kmers.  Same insert stream
+    either way."""
+    est = _est_stream_len(filename)
+    if est < 0:
+        return False
+    if not is10x and est >= scanner.host_threshold:
+        from modimizer_tpu.io.stream_seq import iter_seq_batches
+        try:
+            it = iter_seq_batches(filename, seqio.dna2index_n0())
+            first = next(it, None)
+        except ValueError:
+            pass        # not FASTA/FASTQ: generic whole-file path below
+        except IOError:
+            return False
+        else:
+            n_seq = tot_len = 0
+
+            def _batches():
+                nonlocal n_seq, tot_len
+                for cb, ob in ([first] if first is not None else []):
+                    n_seq += len(ob) - 1
+                    tot_len += len(cb)
+                    yield cb, ob
+                for cb, ob in it:
+                    n_seq += len(ob) - 1
+                    tot_len += len(cb)
+                    yield cb, ob
+
+            n_hash = scanner.scan_kmers_batches(_batches(),
+                                                consumer=ms.add_batch)
+            out.write("added %d sequences total length %d total hashes %d,"
+                      " new max %d\n" % (n_seq, tot_len, n_hash, ms.max))
+            return True
+    try:
+        batch, _t = seqio.read_seq_file(filename, seqio.dna2index_n0(),
+                                        is_qual=False, want_ids=False)
+    except (IOError, ValueError, FileNotFoundError):
+        return False
+    offsets = np.asarray(batch.offsets, np.int64)
+    codes = batch.codes
+    tot_len = len(codes)
+    if is10x:
+        # odd records (1-based) skip a 23bp barcode (modutils.c:44)
+        parts, lens = [], []
+        for i in range(batch.n):
+            s0 = offsets[i] + (23 if i % 2 == 0 else 0)
+            s = codes[min(s0, offsets[i + 1]):offsets[i + 1]]
+            parts.append(s)
+            lens.append(len(s))
+        codes = np.concatenate(parts) if parts else np.zeros(0, np.int8)
+        offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    n_hash = scanner.scan_kmers(codes, offsets, consumer=ms.add_batch)
+    out.write("added %d sequences total length %d total hashes %d, new max %d\n"
+              % (batch.n, tot_len, n_hash, ms.max))
+    return True
+
+
+def main(argv=None, device=None):
+    """Run modutils commands in order.  device: a torch.device (or its
+    name) for the scan; None takes CUDA when present, else the native host
+    scan."""
+    run(sys.argv[1:] if argv is None else argv, device)
+
+
+@cli_guard
+def run(argv, device=None):
+    """main()'s body; returns the scanner of the last scan command (for its
+    counters), or None when no command scanned."""
+    argv = list(argv)
+    if not argv:
+        usage()
+    if device is not None:
+        device = torch.device(device)
+
+    out = OutFile()
+    timer = Timer()
+    timer.update(sys.stdout)
+
+    ms = None
+    scanner = None
+    args = Args(argv)
+
+    def get_scanner():
+        nonlocal scanner
+        if scanner is None or scanner.sh is not ms.hasher:
+            scanner = ModimizerScanner(ms.hasher, device=device)
+        return scanner
+
+    while args:
+        if not args.current.startswith("-"):
+            die("option/command %s does not start with '-': run without arguments for usage",
+                args.current)
+        args.echo_command()
+
+        if args.match("-v", "--verbose", 1):
+            pass
+        elif (m := args.match("-o", "--output", 2)):
+            out.set(m[1])
+        elif ms is None and args.match("-c", "--create", 1):
+            B, k, w, s = 28, 19, 31, 17
+            vals = []
+            while args and not args.current.startswith("-") and len(vals) < 4:
+                vals.append(args.current)
+                args.i += 1
+            try:
+                if len(vals) > 0:
+                    B = int(vals[0])
+                    if not B or B < 20 or B > 34:
+                        die("bad modbuild B %s", vals[0])
+                if len(vals) > 1:
+                    k = int(vals[1])
+                    if not k or k < 1:
+                        die("bad modbuild k %s", vals[1])
+                if len(vals) > 2:
+                    w = int(vals[2])
+                    if not w:
+                        die("bad modbuild w %s", vals[2])
+                if len(vals) > 3:
+                    s = int(vals[3])
+                    if not s:
+                        die("bad modbuild w %s", vals[3])
+            except ValueError:
+                die("bad modbuild parameter")
+            sh = Seqhash.create(k, w, s)
+            out.write(sh.report())
+            ms = Modset(sh, B, 0)
+        elif ms is None and (m := args.match("-r", "--read", 2)):
+            try:
+                ms = Modset.read(m[1])
+            except (IOError, FileNotFoundError):
+                die("failed to open mod file %s", m[1])
+            ms.summary(out)
+        elif ms is not None and (m := args.match("-w", "--write", 2)):
+            ms.write(m[1])
+        elif ms is None and (m := args.match("-rt", "--readtext", 2)):
+            try:
+                f = open(m[1])
+            except OSError:
+                die("failed to open text file %s", m[1])
+            with f:
+                ms = Modset.read_text(f)
+            ms.summary(out)
+        elif ms is not None and (m := args.match("-wt", "--writetext", 2)):
+            try:
+                f = open(m[1], "w")
+            except OSError:
+                die("failed to open text file %s", m[1])
+            with f:
+                ms.write_text(f)
+        elif ms is not None and (m := args.match("-p", "--prune", 3)):
+            ms.depth_prune(int(m[1]), int(m[2]))
+            ms.summary(out)
+        elif ms is not None and (m := args.match("-s", "--setcopy", 4)):
+            ms.set_copy_thresholds(int(m[1]), int(m[2]), int(m[3]))
+            ms.summary(out)
+        elif ms is not None and (m := args.match("-sM", "--setcopyM", 2)):
+            ms.set_copyM_threshold(int(m[1]))
+            ms.summary(out)
+        elif ms is not None and (m := args.match("-a", "--add", 2)):
+            if not add_sequence_file(ms, get_scanner(), m[1], out):
+                die("failed to open sequence file %s", m[1])
+            ms.summary(out)
+        elif ms is not None and (m := args.match("-x", "--add10x", 2)):
+            if not add_sequence_file(ms, get_scanner(), m[1], out, is10x=True):
+                die("failed to open sequence file %s", m[1])
+            ms.summary(out)
+        elif ms is not None and (m := args.match("-m", "--merge", 2)):
+            try:
+                ms2 = Modset.read(m[1])
+            except (IOError, FileNotFoundError):
+                die("failed to open mod file %s", m[1])
+            ms2.summary(out)
+            if not ms.merge(ms2):
+                sys.stderr.write(
+                    "modset %s incompatible with current - unable to merge\n" % m[1])
+            ms.summary(out)
+        elif ms is not None and (m := args.match("-H", "--hist", 2)):
+            try:
+                f = open(m[1], "w")
+            except OSError:
+                die("failed to open histogram file %s", m[1])
+            with f:
+                depth_histogram(ms, f)
+        elif ms is not None and (m := args.match("-d", "--depths", 2)):
+            try:
+                fd = open(m[1], "w")
+            except OSError:
+                die("failed to open depths file %s", m[1])
+            others = []
+            for name in args.take_while_not_flag():
+                try:
+                    other = Modset.read(name)
+                except (IOError, FileNotFoundError):
+                    die("failed to open mod file %s", name)
+                others.append(other)
+                other.summary(out)
+            with fd:
+                report_depths(ms, others, fd)
+        elif ms is not None and (m := args.match("-P", "--refpaint", 2)):
+            try:
+                batch, _t = seqio.read_seq_file(m[1], seqio.dna2index_n0(),
+                                                is_qual=False, want_ids=True)
+            except (IOError, ValueError, FileNotFoundError):
+                die("failed to open ref seq file %s", m[1])
+            kmers, rid, rpos, _isF = get_scanner().scan_batch(batch)
+            idx = ms.find_batch(kmers)
+            lens = batch.lengths
+            for i in range(batch.n):
+                sys.stdout.write("painting %s length %d\n"
+                                 % (batch.ids[i], int(lens[i])))
+                sel = rid == i
+                for p, ix in zip(rpos[sel], idx[sel]):
+                    if ix:
+                        sys.stdout.write("  %d\t%d\n" % (int(p), int(ms.depth[ix])))
+        else:
+            die("unknown command %s - run without arguments for usage", args.current)
+
+        timer.update(out.f)
+
+    finish(out, timer)
+    return scanner
+
+
+if __name__ == "__main__":
+    main()
