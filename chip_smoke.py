@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels from
 this checkout, holds each against its plain PyTorch version, drives the
 port's ``modutils -a`` at full size and checks its .mod against the native
-host path byte for byte.
+host path byte for byte, then runs the scan-front probes on the card.
 
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --phases env,build,kernels --small
+    python3 chip_smoke.py --phases env,build,kernels,probes
 
 Prints one JSON line per phase, then a ``{"kernels": [...]}`` line, the
 card's ``name, power.limit`` line from nvidia-smi, and last
@@ -27,9 +28,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "main", "overflow")
+PHASES = ("env", "build", "kernels", "main", "overflow", "probes")
 KW_PAIRS = [(16, 16), (11, 10), (13, 31), (19, 31), (24, 16), (31, 31)]
 SEED = 17
+MAIN_KERNELS = ("scan_compact", "densify")       # what modutils -a launches
+PROBE_KERNELS = ("front_planes", "front_mma", "front_ops")
+FRONT_W = (2, 16, 64)
 
 
 def say(obj):
@@ -88,20 +92,6 @@ def max_abs_err(pairs):
     return err
 
 
-def time_ms(fn, reps):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 # ---------------------------------------------------------------- phases
 
 def phase_env():
@@ -141,6 +131,7 @@ def phase_kernels(small, report):
                                                      scan_compact,
                                                      scan_compact_ref)
     from modimizer_tpu_torch.ops.seqhash import ModimizerScanner
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
     rng = np.random.default_rng(SEED)
     sizes = [1 << 15] if small else [1 << 15, 1 << 25]
     errs = {"scan_compact": 0.0, "densify": 0.0}
@@ -210,16 +201,106 @@ def phase_kernels(small, report):
     args = dict(k=kp.k, w=kp.w, factor1=kp.factor1, C=C, bo=bo,
                 meta_isf=False)
     rows = scan_compact(sw, vb, **args)
-    t = {"scan_compact": (time_ms(lambda: scan_compact(sw, vb, **args), 20),
-                          time_ms(lambda: scan_compact_ref(sw, vb, **args),
-                                  3)),
-         "densify": (time_ms(lambda: densify(rows[0], None, rows[2], bo=bo,
-                                             cap=cap), 20),
-                     time_ms(lambda: densify_ref(rows[0], None, rows[2],
-                                                 bo=bo, cap=cap), 3))}
+    # device time with the launches queued ahead (densify's wrapper takes
+    # about as long to enqueue as its kernel runs)
+    t = {"scan_compact": (
+            device_ms(lambda: scan_compact(sw, vb, **args), 20)[0],
+            device_ms(lambda: scan_compact_ref(sw, vb, **args), 3, 1)[0]),
+         "densify": (
+            device_ms(lambda: densify(rows[0], None, rows[2], bo=bo,
+                                      cap=cap), 20)[0],
+            device_ms(lambda: densify_ref(rows[0], None, rows[2], bo=bo,
+                                          cap=cap), 3, 1)[0])}
     for name, (ms, plain_ms) in t.items():
         report[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
     say({"phase": "kernel_times", "C": C, "k": 16, "w": 16,
+         "ms": {n: v[0] for n, v in t.items()},
+         "plain_ms": {n: v[1] for n, v in t.items()},
+         "card": nvidia_smi_line()})
+    check_front_kernels(small, rng, report)
+
+
+def check_front_kernels(small, rng, report):
+    """The probe kernels against their plain versions on the card, bit for
+    bit: every front_planes variant and front_mma at C = 2^15 and 2^24 for
+    each w in FRONT_W, every front_ops op on C elements after 1 and 16
+    passes; then each timed
+    beside its plain version at the probes' default shapes."""
+    import numpy as np
+    import torch
+    from modimizer_tpu.core.seqhash import Seqhash
+    from modimizer_tpu_torch.ops.front_kernel import (VARIANTS, front_planes,
+                                                      front_planes_ref,
+                                                      make_streams)
+    from modimizer_tpu_torch.ops.front_mma import front_mma, front_mma_ref
+    from modimizer_tpu_torch.ops.front_ops import (OPS, R_LAST, front_ops,
+                                                   front_ops_ref)
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    sizes = [1 << 15] if small else [1 << 15, 1 << 24]
+    errs = dict.fromkeys(PROBE_KERNELS, 0.0)
+    n_cases = 0
+
+    def check(name, got, want, tag):
+        nonlocal n_cases
+        torch.cuda.synchronize()
+        e = max_abs_err(zip(got, want))
+        errs[name] = max(errs[name], e)
+        n_cases += 1
+        if e:
+            fail("%s != its plain version at %s" % (name, tag))
+
+    for C in sizes:
+        NJ = C // 16
+        st = make_streams(random_chunk(rng, C, 16)[0], NJ)
+        for w in FRONT_W:
+            f1 = Seqhash.create(16, w, SEED).factor1
+            tag = "C=2^%d w=%d" % (C.bit_length() - 1, w)
+            for v in VARIANTS:
+                args = dict(factor1=f1, w=w, variant=v, mj=min(4096, NJ),
+                            seed=w if v == "noin" else 0)
+                check("front_planes", front_planes(*st, **args),
+                      front_planes_ref(*st, **args), tag + " " + v)
+            check("front_mma", front_mma(*st, factor1=f1, w=w),
+                  front_mma_ref(*st, factor1=f1, w=w), tag)
+        x = torch.from_numpy(rng.integers(0, 2 ** 32, C, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).cuda()
+        x = x.view(max(1, C >> 17), 128, -1)
+        for op in OPS:
+            for r in (0, R_LAST):
+                check("front_ops", (front_ops(x, op, r),),
+                      (front_ops_ref(x, op, r),),
+                      "%s %s r=%d" % (tuple(x.shape), op, r))
+    say({"phase": "front_kernels", "cases": n_cases, "sizes": sizes,
+         "w": list(FRONT_W), "variants": list(VARIANTS), "ops": list(OPS),
+         "max_abs_err": errs})
+
+    # times at the probes' default shapes: C = 2^24 (k16 w16, "full"), and
+    # u32 [8, 128, 1024] for the micro-ops ("dyn": the funnel's variable
+    # shift, 16 passes as the script's grid)
+    C = sizes[-1]
+    f1 = Seqhash.create(16, 16, SEED).factor1
+    st = make_streams(random_chunk(rng, C, 16)[0], C // 16)
+    full = dict(factor1=f1, w=16, variant="full", mj=min(4096, C // 16))
+    x = torch.from_numpy(rng.integers(0, 2 ** 32, 1 << 20, dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32)).cuda()
+    x = x.view(8, 128, 1024)
+    # device time with the launches queued ahead (the wrappers' host time
+    # exceeds these kernels' at the probes' sizes)
+    t = {"front_planes": (
+            device_ms(lambda: front_planes(*st, **full), 20)[0],
+            device_ms(lambda: front_planes_ref(*st, **full), 3, 1)[0]),
+         "front_mma": (
+            device_ms(lambda: front_mma(*st, factor1=f1, w=16), 20)[0],
+            device_ms(lambda: front_mma_ref(*st, factor1=f1, w=16), 3, 1)[0]),
+         "front_ops": (device_ms(lambda: front_ops(x, "dyn"), 20)[0],
+                       device_ms(lambda: front_ops_ref(x, "dyn"), 3, 1)[0])}
+    timed = {"front_planes": "C=2^%d k16 w16 full" % (C.bit_length() - 1),
+             "front_mma": "C=2^%d k16 w16" % (C.bit_length() - 1),
+             "front_ops": "dyn r=0..15 on u32 [8, 128, 1024]"}
+    for name, (ms, plain_ms) in t.items():
+        report[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                            timed=timed[name])
+    say({"phase": "front_kernel_times", "timed": timed,
          "ms": {n: v[0] for n, v in t.items()},
          "plain_ms": {n: v[1] for n, v in t.items()},
          "card": nvidia_smi_line()})
@@ -261,7 +342,7 @@ def run_port(argv, launches):
         scanner = port_cli.run(argv, device=torch.device("cuda"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(_build.LAUNCHES)
+    counts = {n: _build.LAUNCHES[n] for n in MAIN_KERNELS}
     if not all(counts.values()):
         fail("%s: a kernel was never launched: %s" % (argv, counts))
     if scanner is None or not scanner.used_device or scanner.n_fallback:
@@ -361,6 +442,45 @@ def phase_overflow():
         fail("poly-A run did not take the wide retry alone: %s" % (tiers,))
 
 
+def phase_probes(small, launches):
+    """Each probe entry point in this process on the card, at the scripts'
+    C = 2^24 and the main path's chunk C = 2^25 (2^15 with --small); each
+    checks its kernels against their plain versions and prints one JSON
+    line per variant.  The probe kernels' launch counts are zeroed just
+    before and read just after."""
+    import torch
+    from modimizer_tpu_torch import _build
+    from modimizer_tpu_torch.probes import (probe_chain_time, probe_front,
+                                            probe_front_mxu,
+                                            probe_pallas_front,
+                                            probe_pallas_parts)
+    dev = torch.device("cuda")
+    runs = []
+    for c in ([15] if small else [24, 25]):
+        mj = str(min(4096, (1 << c) // 16))
+        runs += [(probe_pallas_parts, [str(c), mj]),
+                 (probe_pallas_front, [str(c), mj]),
+                 (probe_front_mxu, [str(c), mj]),
+                 (probe_chain_time, [str(c), "3", "20", "--mj", mj])]
+    runs.append((probe_front, []))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for mod, argv in runs:
+        name = mod.__name__.rsplit(".", 1)[1]
+        if mod.main(argv, device=dev) != 0:
+            fail("%s %s: a kernel disagrees with its plain version"
+                 % (name, argv))
+    torch.cuda.synchronize()
+    counts = {n: _build.LAUNCHES[n] for n in PROBE_KERNELS}
+    if not all(counts.values()):
+        fail("probes: a kernel was never launched: %s" % counts)
+    launches.update(counts)
+    say({"phase": "probes", "runs": [[m.__name__.rsplit(".", 1)[1], a]
+                                     for m, a in runs],
+         "seconds": time.perf_counter() - t0, "launches": counts,
+         "card": nvidia_smi_line()})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -387,6 +507,25 @@ def main(argv=None):
             "name": "densify", "route": "cuda",
             "source": "modimizer_tpu_torch/csrc/densify.cu",
             "replaces": "modimizer_tpu/ops/device_scan.py:183"},
+        "front_planes": {
+            "name": "front_planes", "route": "cuda",
+            "source": "modimizer_tpu_torch/csrc/front_planes.cu",
+            "replaces": "scripts/probe_chain_time.py:142",
+            "also_replaces": ["scripts/probe_pallas_parts.py:175",
+                              "scripts/probe_pallas_parts.py:183",
+                              "scripts/probe_pallas_parts.py:191",
+                              "scripts/probe_pallas_parts.py:199",
+                              "scripts/probe_pallas_parts.py:211",
+                              "scripts/probe_pallas_front.py:134",
+                              "scripts/probe_front_mxu.py:200"]},
+        "front_mma": {
+            "name": "front_mma", "route": "cuda",
+            "source": "modimizer_tpu_torch/csrc/front_mma.cu",
+            "replaces": "scripts/probe_front_mxu.py:212"},
+        "front_ops": {
+            "name": "front_ops", "route": "cuda",
+            "source": "modimizer_tpu_torch/csrc/front_ops.cu",
+            "replaces": "scripts/probe_front.py:36"},
     }
     launches = {}
     work = os.path.join(HERE, "chip_smoke_work")
@@ -402,11 +541,12 @@ def main(argv=None):
             phase_main(a.small, work, launches)
         if "overflow" in phases:
             phase_overflow()
+        if "probes" in phases:
+            phase_probes(a.small, launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if "main" in phases:
-        for name, n in launches.items():
-            report[name]["launches"] = n
+    for name, n in launches.items():
+        report[name]["launches"] = n
     if "jax" in sys.modules:
         fail("jax was imported")
     say({"kernels": list(report.values())})

@@ -3,8 +3,9 @@ with a plain C interface, loaded with ctypes, at first use.
 
 The library is named by a hash of the sources and built with an atomic
 rename (the same scheme as ``modimizer_tpu/native/__init__.py``), so
-concurrent first uses are safe and an edited source rebuilds.  Nothing here
-runs at import: the CPU-only test suite imports every module.
+concurrent first uses are safe and an edited source rebuilds.  Each source
+is compiled by its own nvcc process, all started together, then linked.
+Nothing here runs at import: the CPU-only test suite imports every module.
 
 ``LAUNCHES`` counts each kernel's launches; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
@@ -24,9 +25,10 @@ _LOCK = threading.Lock()
 _LIB = None
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"scan_compact": 0, "densify": 0}
+LAUNCHES = {"scan_compact": 0, "densify": 0, "front_planes": 0,
+            "front_mma": 0, "front_ops": 0}
 
 
 def reset_launches():
@@ -62,14 +64,34 @@ def build() -> Path:
     out_dir.mkdir(exist_ok=True)
     so = out_dir / f"libmodimizer_kernels-{h.hexdigest()[:16]}.so"
     if not so.exists():
-        tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-        r = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)]
-                           + [str(s) for s in srcs],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError("nvcc failed (rc %d):\n%s%s"
-                               % (r.returncode, r.stdout, r.stderr))
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        tag = f".tmp{os.getpid()}"
+        objs = [out_dir / f"{s.stem}{tag}.o" for s in srcs]
+        procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", "-o", str(o),
+                                                         str(s)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        errors = []
+        for s, p in zip(srcs, procs):
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append("%s (rc %d):\n%s" % (s.name, p.returncode, out))
+        tmp = so.with_suffix(f"{tag}.so")
+        try:
+            if errors:
+                raise RuntimeError("nvcc failed: " + "\n".join(errors))
+            r = subprocess.run([nvcc] + NVCC_FLAGS + ["-shared", "-o",
+                                                      str(tmp)]
+                               + [str(o) for o in objs],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError("nvcc link failed (rc %d):\n%s%s"
+                                   % (r.returncode, r.stdout, r.stderr))
+            os.replace(tmp, so)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
     return so
 
 
@@ -101,6 +123,27 @@ def _declare(L):
         p, p, p, p,            # src_k, src_meta (nullable), cnt, base
         i64, i32, i64,         # nb, bo, cap
         p, p,                  # dst_k, dst_meta (nullable)
+        p]                     # stream
+    L.mz_front_planes.restype = ctypes.c_int
+    L.mz_front_planes.argtypes = [
+        p, p, p, p,            # pa, pb, za, zb
+        i64, i32, u64,         # nj, variant, factor1
+        ctypes.c_uint32,       # wmask = w - 1
+        i64, i32, i32,         # mj, seed, nblocks
+        p, p, p,               # km, em, acc
+        p]                     # stream
+    L.mz_front_mma.restype = ctypes.c_int
+    L.mz_front_mma.argtypes = [
+        p, p, p, p,            # pa, pb, za, zb
+        i64, p,                # nj, limb weights (host, 24 x 8 u8)
+        ctypes.c_uint32, i32,  # wmask, nblocks
+        p, p,                  # km, em
+        p]                     # stream
+    L.mz_front_ops.restype = ctypes.c_int
+    L.mz_front_ops.argtypes = [
+        p, i64, i32,           # x, n, op
+        i32, i32, i32, i32,    # L, R, r_last, nblocks
+        p,                     # out
         p]                     # stream
     L.mz_error_string.restype = ctypes.c_char_p
     L.mz_error_string.argtypes = [i32]

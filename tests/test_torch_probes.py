@@ -1,0 +1,101 @@
+"""The port's probe entry points (modimizer_tpu_torch/probes/) on the CPU:
+each ``main(argv, device="cpu")`` holds its kernels' wrappers against their
+plain versions and prints one JSON line per variant; names of TPU-only
+backends exit non-zero; no probe imports jax.  On the card the same entry
+points time the kernels (chip_smoke.py, phase ``probes``)."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from modimizer_tpu_torch.probes import (probe_chain_time,
+                                        probe_front, probe_front_mxu,
+                                        probe_pallas_front,
+                                        probe_pallas_parts)
+
+REPO = Path(__file__).resolve().parent.parent
+MJ = "256"
+
+RUNS = [
+    (probe_pallas_parts, ["14", MJ],
+     ["full", "noin", "noout", "kmonly", "emonly"]),
+    (probe_pallas_parts, ["14", MJ, "noout,full"], ["noout", "full"]),
+    (probe_pallas_front, ["14", MJ], ["count", "planes", "front32"]),
+    (probe_front_mxu, ["14", MJ], ["nohash", "mul16", "mxu"]),
+    (probe_chain_time, ["14", "1", "2", "--mj", MJ],
+     ["front", "nohash", "front_xla", "fusedd_pm"]),
+    (probe_front, [], ["copy", "static16", "dyn", "mul10", "iota"]),
+    (probe_front, ["mul10", "iota"], ["mul10", "iota"]),
+]
+
+
+@pytest.mark.parametrize("mod,argv,want", RUNS,
+                         ids=[m.__name__.rsplit(".", 1)[1] + "-" + "-".join(a)
+                              for m, a, _w in RUNS])
+def test_probe_runs_on_cpu(capsys, mod, argv, want):
+    assert mod.main(argv, device="cpu") == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["variant"] for x in lines] == want
+    for x in lines:
+        assert x["check"] in ("match", "is the plain version")
+        assert x["device"] == "cpu" and x["ms"] is None
+        assert x["card"] is None
+
+
+@pytest.mark.parametrize("name", probe_chain_time.UNPORTED)
+def test_tpu_only_backend_exits_nonzero(name):
+    with pytest.raises(SystemExit) as e:
+        probe_chain_time.main(["14", "1", "2", "front," + name, "--mj", MJ],
+                              device="cpu")
+    assert e.value.code not in (0, None)
+    assert "Do not port the losing TPU-only backends" in str(e.value.code)
+
+
+@pytest.mark.parametrize("mod,argv", [
+    (probe_pallas_parts, ["14", MJ, "full,bogus"]),
+    (probe_front_mxu, ["14", MJ, "mxu2"]),
+    (probe_front, ["rot"]),
+    (probe_pallas_parts, ["14", "4096"])])
+def test_bad_arguments_exit_nonzero(mod, argv):
+    with pytest.raises(SystemExit) as e:
+        mod.main(argv, device="cpu")
+    assert e.value.code not in (0, None)
+
+
+def test_card_required_without_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("checks the policy of a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        probe_pallas_parts.main(["14", MJ], device=None)
+
+
+_NO_JAX = r"""
+import runpy, sys
+sys.argv = ["probe_pallas_parts", "--help"]
+try:
+    runpy.run_module("modimizer_tpu_torch.probes.probe_pallas_parts",
+                     run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "jax" not in sys.modules, "jax was imported"
+from modimizer_tpu_torch.probes import (probe_chain_time, probe_front,
+                                        probe_front_mxu, probe_pallas_front)
+assert probe_chain_time.main(["12", "1", "1", "--mj", "128"],
+                             device="cpu") == 0
+assert "jax" not in sys.modules, "jax was imported"
+sys.stderr.write("NO_JAX_OK\n")
+"""
+
+
+def test_probes_never_import_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO_JAX_OK" in r.stderr
+    assert "usage: probe_pallas_parts" in r.stdout
