@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels from
 this checkout, holds each against its plain PyTorch version, drives the
-port's ``modutils -a`` at full size and checks its .mod against the native
-host path byte for byte, then runs the scan-front probes on the card.
+port's ``modutils -a`` at full size through both of its device paths (the
+device count of the builder, and the streaming scanner) and checks each .mod
+against the native host path byte for byte, profiles both paths (stage
+timers, the card's busy time and idle share), then runs the scan-front and
+compaction-primitive probes on the card.
 
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --phases env,build,kernels --small
@@ -28,11 +31,17 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "main", "overflow", "probes")
+PHASES = ("env", "build", "kernels", "main", "overflow", "profile",
+          "probes")
 KW_PAIRS = [(16, 16), (11, 10), (13, 31), (19, 31), (24, 16), (31, 31)]
 SEED = 17
-MAIN_KERNELS = ("scan_compact", "densify")       # what modutils -a launches
-PROBE_KERNELS = ("front_planes", "front_mma", "front_ops")
+# what modutils -a launches on each path: the builder's device count (inputs
+# of 2^25 bases or more), and the streaming scanner
+PATH_KERNELS = {"builder": ("scan_compact",),
+                "scanner": ("scan_compact", "densify")}
+PROBE_KERNELS = ("front_planes", "front_mma", "front_ops", "tala16", "dot16",
+                 "roll12", "cumsum128")
+FRONT_KERNELS, MOSAIC_KERNELS = PROBE_KERNELS[:3], PROBE_KERNELS[3:]
 FRONT_W = (2, 16, 64)
 
 
@@ -42,6 +51,21 @@ def say(obj):
 
 def fail(msg):
     raise SystemExit("chip_smoke FAILED: " + msg)
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """os.environ with ``values`` set, restored on exit."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def nvidia_smi_line():
@@ -218,6 +242,7 @@ def phase_kernels(small, report):
          "plain_ms": {n: v[1] for n, v in t.items()},
          "card": nvidia_smi_line()})
     check_front_kernels(small, rng, report)
+    check_mosaic_kernels(small, rng, report)
 
 
 def check_front_kernels(small, rng, report):
@@ -237,7 +262,7 @@ def check_front_kernels(small, rng, report):
                                                    front_ops_ref)
     from modimizer_tpu_torch.probes._timing import time_ms as device_ms
     sizes = [1 << 15] if small else [1 << 15, 1 << 24]
-    errs = dict.fromkeys(PROBE_KERNELS, 0.0)
+    errs = dict.fromkeys(FRONT_KERNELS, 0.0)
     n_cases = 0
 
     def check(name, got, want, tag):
@@ -306,6 +331,62 @@ def check_front_kernels(small, rng, report):
          "card": nvidia_smi_line()})
 
 
+def check_mosaic_kernels(small, rng, report):
+    """The compaction-primitive kernels against their plain versions on the
+    card, bit for bit: random u32 and both signs of i8, ranks from -16 to
+    127 (those >= 112 land nowhere), at C = 2^16 and 2^24 positions; then
+    each timed beside its plain version on the probe's inputs at 2^24."""
+    import numpy as np
+    import torch
+    from modimizer_tpu_torch.ops import mosaic_prims as mp
+    from modimizer_tpu_torch.probes import probe_mosaic_prims
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    sizes = [1 << 16] if small else [1 << 16, 1 << 24]
+    errs = dict.fromkeys(MOSAIC_KERNELS, 0.0)
+    n_cases = 0
+
+    def put(a):
+        return torch.from_numpy(a).cuda()
+
+    for C in sizes:
+        u32 = rng.integers(0, 2 ** 32, (2, 16, C // 16), dtype=np.uint64)
+        x, idx = (put(a.astype(np.uint32).view(np.int32)) for a in u32)
+        e = put(rng.integers(-128, 128, (C // 128, 128)).astype(np.int8))
+        nb = C // 1024
+        rank = put(rng.integers(-16, 128, (nb, 1024)).astype(np.int32))
+        cols = put(rng.integers(-128, 128, (nb, 1024, 8)).astype(np.int8))
+        for name, args in (("tala16", (x, idx)), ("roll12", (x,)),
+                           ("cumsum128", (e,)), ("dot16", (rank, cols))):
+            got = getattr(mp, name)(*args)
+            want = getattr(mp, name + "_ref")(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err([(got, want)])
+            errs[name] = max(errs[name], err)
+            n_cases += 1
+            if err:
+                fail("%s != its plain version at C=2^%d"
+                     % (name, C.bit_length() - 1))
+    say({"phase": "mosaic_kernels", "cases": n_cases, "sizes": sizes,
+         "max_abs_err": errs})
+
+    C = sizes[-1]
+    probe = {k: v for v, k in probe_mosaic_prims.KERNEL.items()}
+    t = {}
+    for name in MOSAIC_KERNELS:
+        args = probe_mosaic_prims.inputs(probe[name], C, torch.device("cuda"))
+        fn, plain = getattr(mp, name), getattr(mp, name + "_ref")
+        t[name] = (device_ms(lambda: fn(*args), 20)[0],
+                   device_ms(lambda: plain(*args), 3, 1)[0])
+        report[name].update(max_abs_err=errs[name], ms=t[name][0],
+                            plain_ms=t[name][1],
+                            timed="C=2^%d, the probe's inputs"
+                            % (C.bit_length() - 1))
+    say({"phase": "mosaic_kernel_times", "C": C,
+         "ms": {n: v[0] for n, v in t.items()},
+         "plain_ms": {n: v[1] for n, v in t.items()},
+         "card": nvidia_smi_line()})
+
+
 def write_reads(path, n_reads, read_len, seed):
     """bench.py's synthetic read set: uniform ACGT, numpy default_rng."""
     import numpy as np
@@ -327,30 +408,48 @@ _ADDED = re.compile(r"^added \d+ sequences total length (\d+) total hashes "
                     r"\d+, new max \d+$", re.M)
 
 
-def run_port(argv, launches):
-    """The port's modutils in this process on the card: (stdout, wall s,
-    scanner).  Launch counts are zeroed just before and read just after,
-    and every kernel of the path must have run."""
+def run_port(argv, launches, path):
+    """The port's modutils in this process on the card, on ``path``
+    ("builder": the device count; "scanner": the streaming scanner, with the
+    device-count threshold above any input): (stdout, wall s, scanner,
+    builders: one per -a input).  Launch counts are zeroed just before and
+    read just after; every kernel of the path must have run, and the path
+    must be the one asked for."""
     import torch
     from modimizer_tpu_torch import _build
     from modimizer_tpu_torch.cli import modutils as port_cli
     out = io.StringIO()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out), \
-            contextlib.redirect_stderr(io.StringIO()):
-        scanner = port_cli.run(argv, device=torch.device("cuda"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {n: _build.LAUNCHES[n] for n in MAIN_KERNELS}
+    builders = []
+    threshold = port_cli.DEVICE_COUNT_THRESHOLD
+    if path == "scanner":
+        port_cli.DEVICE_COUNT_THRESHOLD = 1 << 62
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            scanner = port_cli.run(argv, device=torch.device("cuda"),
+                                   builders=builders)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        port_cli.DEVICE_COUNT_THRESHOLD = threshold
+    counts = {n: _build.LAUNCHES[n] for n in PATH_KERNELS[path]}
     if not all(counts.values()):
         fail("%s: a kernel was never launched: %s" % (argv, counts))
-    if scanner is None or not scanner.used_device or scanner.n_fallback:
-        fail("%s: the scan left the device (n_fallback=%s)"
-             % (argv, None if scanner is None else scanner.n_fallback))
+    if scanner is None or not builders:
+        fail("%s: no scan command ran" % argv)
+    if path == "builder":
+        if (any(b is None or b.device.type != "cuda" for b in builders)
+                or _build.LAUNCHES["densify"]):
+            fail("%s: the input was not counted on the card" % argv)
+    elif (any(b is not None for b in builders) or not scanner.used_device
+          or scanner.n_fallback):
+        fail("%s: the scan left the device or the scanner (n_fallback=%s)"
+             % (argv, scanner.n_fallback))
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
-    return out.getvalue(), wall, scanner
+    return out.getvalue(), wall, scanner, builders
 
 
 def run_host(argv):
@@ -367,52 +466,93 @@ def run_host(argv):
     return r.stdout, wall
 
 
-def run_pair(work, fa, params, tag, launches):
-    """modutils -c <params> -a fa through the port (on the card) and the
-    host path: timed without -w (parse + scan + table replay, the build
-    rate), then again with -w; .mod bytes and 'added' lines must agree."""
-    port_mod = os.path.join(work, tag + ".port.mod")
+def run_cases(work, fa, params, tag, launches, paths):
+    """modutils -c <params> -a fa on the host path, then through the port
+    (on the card) on each of ``paths``: timed without -w (parse + scan +
+    table replay, the build rate), then again with -w; .mod bytes and
+    'added' lines must agree with the host path's."""
     host_mod = os.path.join(work, tag + ".host.mod")
     argv = ["-c"] + [str(p) for p in params] + ["-a", fa]
-    port_out, port_s, scanner = run_port(argv, launches)
-    port_w_out, port_w_s, _ = run_port(argv + ["-w", port_mod], launches)
     host_out, host_s = run_host(argv)
     host_w_out, host_w_s = run_host(argv + ["-w", host_mod])
-    lines = [[m.group(0) for m in _ADDED.finditer(o)]
-             for o in (port_out, port_w_out, host_out, host_w_out)]
-    if not lines[0] or any(x != lines[0] for x in lines):
-        fail("%s: 'added' lines differ: %r" % (tag, lines))
-    with open(port_mod, "rb") as a, open(host_mod, "rb") as b:
-        same = a.read() == b.read()
-    if not same:
-        fail("%s: port .mod differs from the host path's" % tag)
-    m = re.match(r"added (\d+) sequences total length (\d+)", lines[0][0])
-    kpos = int(m.group(2)) - (params[1] - 1) * int(m.group(1))
-    say({"phase": "main", "case": tag, "params": list(params),
-         "added": lines[0][0], "mod_identical": same, "kmer_positions": kpos,
-         "port_build_s": port_s, "port_mpos_s": kpos / port_s / 1e6,
-         "host_build_s": host_s, "host_mpos_s": kpos / host_s / 1e6,
-         "port_with_write_s": port_w_s, "host_with_write_s": host_w_s,
-         "n_wide": scanner.n_wide, "n_fallback": scanner.n_fallback,
-         "launches": dict(launches), "card": nvidia_smi_line()})
+    with open(host_mod, "rb") as f:
+        host_bytes = f.read()
+    for path in paths:
+        port_mod = os.path.join(work, "%s.%s.mod" % (tag, path))
+        port_out, port_s, scanner, builders = run_port(argv, launches, path)
+        port_w_out, port_w_s, _, _ = run_port(argv + ["-w", port_mod],
+                                              launches, path)
+        lines = [[m.group(0) for m in _ADDED.finditer(o)]
+                 for o in (port_out, port_w_out, host_out, host_w_out)]
+        if not lines[0] or any(x != lines[0] for x in lines):
+            fail("%s %s: 'added' lines differ: %r" % (tag, path, lines))
+        with open(port_mod, "rb") as f:
+            same = f.read() == host_bytes
+        if not same:
+            fail("%s %s: port .mod differs from the host path's"
+                 % (tag, path))
+        m = re.match(r"added (\d+) sequences total length (\d+)",
+                     lines[0][0])
+        kpos = int(m.group(2)) - (params[1] - 1) * int(m.group(1))
+        b = builders[0]
+        detail = ({"n_compact": b.n_compact, "n_replay": b.n_replay,
+                   "S": b.S, "bo": b.bo, "chunk": b.chunk} if b is not None
+                  else {"n_wide": scanner.n_wide,
+                        "n_fallback": scanner.n_fallback})
+        say({"phase": "main", "case": tag, "path": path,
+             "params": list(params), "added": lines[0][0],
+             "mod_identical": same, "kmer_positions": kpos,
+             "port_build_s": port_s, "port_mpos_s": kpos / port_s / 1e6,
+             "host_build_s": host_s, "host_mpos_s": kpos / host_s / 1e6,
+             "port_with_write_s": port_w_s, "host_with_write_s": host_w_s,
+             **detail, "launches": dict(launches),
+             "card": nvidia_smi_line()})
+        os.unlink(port_mod)
+
+
+@contextlib.contextmanager
+def main_sizes(small):
+    """With --small, 2 Mbp is below 2^25 and the scanner's host threshold:
+    lower the device-count threshold, and scan on the card at any size."""
+    from modimizer_tpu_torch.cli import modutils as port_cli
+    if not small:
+        yield
+        return
+    threshold = port_cli.DEVICE_COUNT_THRESHOLD
+    port_cli.DEVICE_COUNT_THRESHOLD = 1 << 20
+    try:
+        with environ(MODIMIZER_SCAN="device"):
+            yield
+    finally:
+        port_cli.DEVICE_COUNT_THRESHOLD = threshold
 
 
 def phase_main(small, work, launches):
+    with main_sizes(small):
+        run_main(small, work, launches)
+
+
+def run_main(small, work, launches):
     n200 = 2_000 if small else 200_000
     n20 = 2_000 if small else 20_000
     fa = os.path.join(work, "reads200.fa")
     write_reads(fa, n200, 1000, 42)
-    run_pair(work, fa, (26, 16, 16, 17), "k16w16", launches)
+    run_cases(work, fa, (26, 16, 16, 17), "k16w16", launches,
+              ("builder", "scanner"))
     fa20 = os.path.join(work, "reads20.fa")
     write_reads(fa20, n20, 1000, 43)
-    run_pair(work, fa20, (26, 19, 31, 17), "k19w31", launches)
+    run_cases(work, fa20, (26, 19, 31, 17), "k19w31", launches,
+              ("builder",) if small else ("scanner",))
     if "jax" in sys.modules:
         fail("jax was imported")
 
 
 def phase_overflow():
     """A 220 bp poly-A run overflows its block: the wide device retry
-    absorbs it without the host rescan, and rows match the host path."""
+    absorbs it without the host rescan, and rows match the host path.  A
+    3,000 bp poly-A read overflows the builder's blocks (k16 w16 and k19
+    w31): it replays the chunks at a wider bo, and its count is the
+    sequential build's."""
     import numpy as np
     from modimizer_tpu.core.seqhash import Seqhash
     from modimizer_tpu.ops.seqhash import ModimizerScanner as HostScanner
@@ -441,6 +581,101 @@ def phase_overflow():
     if not (tiers[0] > 0 and tiers[2] > 0 and tiers[1] == tiers[3] == 0):
         fail("poly-A run did not take the wide retry alone: %s" % (tiers,))
 
+    from modimizer_tpu.ops.seqhash import first_encounter_unique
+    from modimizer_tpu_torch.parallel.sharded import ShardedModsetBuilder
+    lens = rng.integers(100, 1000, 200)
+    seqs = [rng.integers(0, 4, n).astype(np.uint8) for n in lens]
+    seqs[60] = np.zeros(3000, np.uint8)
+    codes = np.concatenate(seqs)
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in seqs])])
+    # k16 w16 (32-bit k-mers) and k19 w31 (64-bit k-mers)
+    for k, w in ((16, 16), (19, 31)):
+        sh = Seqhash.create(k, w, SEED)
+        host = HostScanner(sh, host_threshold=1 << 62)
+        b = ShardedModsetBuilder(sh, "cuda", chunk_per_dev=1 << 14,
+                                 state_size=1 << 12, max_buffer_rows=1 << 14)
+        bo0 = b.bo
+        b.feed_stream(codes, offsets)
+        ks, ds = b.finalize()
+        kmers = host.scan_stream(codes, offsets)[0]
+        uniq, counts = first_encounter_unique(kmers)
+        same_b = (np.array_equal(ks, uniq) and np.array_equal(ds, counts)
+                  and b.total_emitted == len(kmers))
+        say({"phase": "overflow", "case": "builder k%d w%d" % (k, w),
+             "count_identical": same_b, "n_replay": b.n_replay,
+             "bo": [bo0, b.bo], "S": b.S, "n_compact": b.n_compact})
+        if not same_b:
+            fail("builder k%d w%d: count differs from the sequential "
+                 "build's" % (k, w))
+        if not (b.n_replay > 0 and b.bo > bo0):
+            fail("builder k%d w%d: poly-A read did not make it replay "
+                 "wider" % (k, w))
+
+
+def device_busy(prof):
+    """(busy ms, top rows) of a torch.profiler run: the union of the card's
+    kernel, copy and set intervals, and the device time by name.  Only the
+    device-side events count: the host op rows that launched them carry the
+    same time again."""
+    from torch.autograd import DeviceType
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        fail("profile: torch.profiler recorded no device time")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ev)
+    busy, (lo, hi) = 0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > hi:
+            busy, lo, hi = busy + hi - lo, s0, e0
+        else:
+            hi = max(hi, e0)
+    busy += hi - lo
+    by_name = {}
+    for e in ev:
+        t, n = by_name.get(e.name, (0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return busy / 1e3, [[name[:60], t / 1e3, n] for name, (t, n) in top]
+
+
+def phase_profile(small, work):
+    """Where the 200 Mbp k16 w16 build's time goes on each device path,
+    warm: the stage timers (the accumulators MODIMIZER_STAGES=1 turns on)
+    over runs in turns builder, scanner, scanner, builder; then one run of
+    each path under torch.profiler: the card's busy time and its idle share
+    of the command's wall time, with the top device rows."""
+    import torch
+    from modimizer_tpu.utils import profiling
+    fa = os.path.join(work, "reads200.fa")
+    if not os.path.exists(fa):
+        write_reads(fa, 2_000 if small else 200_000, 1000, 42)
+    argv = ["-c", "26", "16", "16", "17", "-a", fa]
+    enabled = profiling._enabled
+    profiling._enabled = True
+    try:
+        with main_sizes(small):
+            for path in ("builder", "scanner"):
+                run_port(argv, {}, path)                # warm-up
+            for path in ("builder", "scanner", "scanner", "builder"):
+                profiling._stages.clear()
+                _, wall, _, _ = run_port(argv, {}, path)
+                say({"phase": "profile", "path": path, "wall_s": wall,
+                     "stages_s": {k: v[0] for k, v in
+                                  sorted(profiling._stages.items())},
+                     "card": nvidia_smi_line()})
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            for path in ("builder", "scanner"):
+                with torch.profiler.profile(activities=acts) as prof:
+                    _, wall, _, _ = run_port(argv, {}, path)
+                busy_ms, top = device_busy(prof)
+                say({"phase": "profile", "path": path,
+                     "profiled_wall_s": wall, "device_busy_ms": busy_ms,
+                     "idle_share": 1 - busy_ms / 1e3 / wall,
+                     "top_device_ms": top, "card": nvidia_smi_line()})
+    finally:
+        profiling._enabled = enabled
+        profiling._stages.clear()
+
 
 def phase_probes(small, launches):
     """Each probe entry point in this process on the card, at the scripts'
@@ -452,6 +687,7 @@ def phase_probes(small, launches):
     from modimizer_tpu_torch import _build
     from modimizer_tpu_torch.probes import (probe_chain_time, probe_front,
                                             probe_front_mxu,
+                                            probe_mosaic_prims,
                                             probe_pallas_front,
                                             probe_pallas_parts)
     dev = torch.device("cuda")
@@ -463,6 +699,7 @@ def phase_probes(small, launches):
                  (probe_front_mxu, [str(c), mj]),
                  (probe_chain_time, [str(c), "3", "20", "--mj", mj])]
     runs.append((probe_front, []))
+    runs.append((probe_mosaic_prims, ["--log2c", "16" if small else "24"]))
     _build.reset_launches()
     t0 = time.perf_counter()
     for mod, argv in runs:
@@ -527,6 +764,11 @@ def main(argv=None):
             "source": "modimizer_tpu_torch/csrc/front_ops.cu",
             "replaces": "scripts/probe_front.py:36"},
     }
+    for name, line in (("tala16", 68), ("dot16", 103), ("roll12", 136),
+                       ("cumsum128", 165)):
+        report[name] = {"name": name, "route": "cuda",
+                        "source": "modimizer_tpu_torch/csrc/mosaic_prims.cu",
+                        "replaces": "scripts/probe_mosaic_prims.py:%d" % line}
     launches = {}
     work = os.path.join(HERE, "chip_smoke_work")
     try:
@@ -541,6 +783,9 @@ def main(argv=None):
             phase_main(a.small, work, launches)
         if "overflow" in phases:
             phase_overflow()
+        if "profile" in phases:
+            os.makedirs(work, exist_ok=True)
+            phase_profile(a.small, work)
         if "probes" in phases:
             phase_probes(a.small, launches)
     finally:

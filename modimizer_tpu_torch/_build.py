@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"scan_compact": 0, "densify": 0, "front_planes": 0,
-            "front_mma": 0, "front_ops": 0}
+            "front_mma": 0, "front_ops": 0, "tala16": 0, "dot16": 0,
+            "roll12": 0, "cumsum128": 0}
 
 
 def reset_launches():
@@ -145,6 +146,12 @@ def _declare(L):
         i32, i32, i32, i32,    # L, R, r_last, nblocks
         p,                     # out
         p]                     # stream
+    for name, args in (("mz_tala16", [p, p, i64, p]),     # x, idx, nj, out
+                       ("mz_dot16", [p, p, i64, p]),      # rank, cols, nb, out
+                       ("mz_roll12", [p, i64, i64, p]),   # x, rows, nj, out
+                       ("mz_cumsum128", [p, i64, p])):    # e, rows, out
+        getattr(L, name).restype = ctypes.c_int
+        getattr(L, name).argtypes = args + [p]            # + stream
     L.mz_error_string.restype = ctypes.c_char_p
     L.mz_error_string.argtypes = [i32]
 

@@ -3,40 +3,62 @@
 
 Same ordered-command surface and output text as ``modimizer_tpu.cli.
 modutils`` (and the reference modutils.c); the jax-free helpers are imported
-from there.  Every input size goes through the streaming scanner: the JAX
-package's sharded device count is not ported, and its output is
-byte-identical either way.
+from there.  As in the JAX CLI, an input of ``DEVICE_COUNT_THRESHOLD``
+(2^25) bases or more bound for the device is read whole and counted on the
+device (``parallel.sharded.ShardedModsetBuilder``), and only its unique
+k-mers with their counts are replayed into the table; smaller inputs, or any
+with ``MODIMIZER_NO_DEVICE_COUNT`` set, go through the streaming scanner.
+The output is byte-identical either way.
 
     python -m modimizer_tpu_torch.cli.modutils -c 26 16 16 17 -a reads.fa -w X.mod
 """
 
+import os
 import sys
 
 import numpy as np
 import torch
 
 from modimizer_tpu.cli.common import Args, OutFile, cli_guard, die, finish
-from modimizer_tpu.cli.modutils import (_est_stream_len, depth_histogram,
+from modimizer_tpu.cli.modutils import (DEVICE_COUNT_THRESHOLD,
+                                        _est_stream_len, depth_histogram,
                                         report_depths, usage)
 from modimizer_tpu.core.modset import Modset
 from modimizer_tpu.core.seqhash import Seqhash
 from modimizer_tpu.io import seqio
+from modimizer_tpu.utils import profiling
 from modimizer_tpu.utils.timers import Timer
 
-from ..ops.seqhash import ModimizerScanner
+from ..ops.seqhash import _NO_DEVICE, ModimizerScanner
+from ..parallel.sharded import ShardedModsetBuilder
+
+
+def _count_on_device(scanner: ModimizerScanner, n_bases: int) -> bool:
+    """The JAX CLI's rule (modimizer_tpu/cli/modutils.py:84-88,139-140):
+    a stream of DEVICE_COUNT_THRESHOLD bases or more that the scanner would
+    scan on its torch device is counted there whole."""
+    return (scanner.device is not None
+            and scanner.host_threshold < _NO_DEVICE
+            and n_bases >= DEVICE_COUNT_THRESHOLD
+            and not os.environ.get("MODIMIZER_NO_DEVICE_COUNT"))
 
 
 def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
-                      is10x=False) -> bool:
-    """modutils addSequenceFile (modutils.c:33-51).  FASTA/FASTQ inputs at
-    or above the scanner's host threshold take the parse-ahead streaming
-    path (parsing overlaps the device scan and the table replay); the rest
-    read the whole file and go through scan_kmers.  Same insert stream
-    either way."""
+                      is10x=False, builders=None) -> bool:
+    """modutils addSequenceFile (modutils.c:33-51).  Inputs counted on the
+    device (``_count_on_device``) are read whole, counted by the builder
+    and replayed once as unique k-mers with counts; other FASTA/FASTQ
+    inputs at or above the scanner's host threshold take the parse-ahead
+    streaming path (parsing overlaps the device scan and the table replay);
+    the rest read the whole file and go through scan_kmers.  Same table
+    either way.  When ``builders`` is a list, the input's builder is
+    appended to it, or None when the scanner scanned it."""
+    builder = None
     est = _est_stream_len(filename)
     if est < 0:
         return False
-    if not is10x and est >= scanner.host_threshold:
+    if (not is10x and not _count_on_device(scanner, est)
+            and est >= scanner.host_threshold):
         from modimizer_tpu.io.stream_seq import iter_seq_batches
         try:
             it = iter_seq_batches(filename, seqio.dna2index_n0())
@@ -61,12 +83,15 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
 
             n_hash = scanner.scan_kmers_batches(_batches(),
                                                 consumer=ms.add_batch)
+            if builders is not None:
+                builders.append(None)
             out.write("added %d sequences total length %d total hashes %d,"
                       " new max %d\n" % (n_seq, tot_len, n_hash, ms.max))
             return True
     try:
-        batch, _t = seqio.read_seq_file(filename, seqio.dna2index_n0(),
-                                        is_qual=False, want_ids=False)
+        with profiling.stage("read"):
+            batch, _t = seqio.read_seq_file(filename, seqio.dna2index_n0(),
+                                            is_qual=False, want_ids=False)
     except (IOError, ValueError, FileNotFoundError):
         return False
     offsets = np.asarray(batch.offsets, np.int64)
@@ -82,7 +107,17 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
             lens.append(len(s))
         codes = np.concatenate(parts) if parts else np.zeros(0, np.int8)
         offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
-    n_hash = scanner.scan_kmers(codes, offsets, consumer=ms.add_batch)
+    if _count_on_device(scanner, len(codes)):
+        builder = ShardedModsetBuilder(ms.hasher, scanner.device)
+        builder.feed_stream(codes, offsets)
+        uniq, counts = builder.finalize()
+        n_hash = builder.total_emitted
+        with profiling.stage("count.replay"):
+            ms.add_batch(uniq, counts)
+    else:
+        n_hash = scanner.scan_kmers(codes, offsets, consumer=ms.add_batch)
+    if builders is not None:
+        builders.append(builder)
     out.write("added %d sequences total length %d total hashes %d, new max %d\n"
               % (batch.n, tot_len, n_hash, ms.max))
     return True
@@ -96,9 +131,11 @@ def main(argv=None, device=None):
 
 
 @cli_guard
-def run(argv, device=None):
+def run(argv, device=None, builders=None):
     """main()'s body; returns the scanner of the last scan command (for its
-    counters), or None when no command scanned."""
+    counters), or None when no command scanned.  When ``builders`` is a
+    list, each -a/-x input appends to it the builder that counted it on the
+    device, or None (``add_sequence_file``)."""
     argv = list(argv)
     if not argv:
         usage()
@@ -190,11 +227,13 @@ def run(argv, device=None):
             ms.set_copyM_threshold(int(m[1]))
             ms.summary(out)
         elif ms is not None and (m := args.match("-a", "--add", 2)):
-            if not add_sequence_file(ms, get_scanner(), m[1], out):
+            if not add_sequence_file(ms, get_scanner(), m[1], out,
+                                     builders=builders):
                 die("failed to open sequence file %s", m[1])
             ms.summary(out)
         elif ms is not None and (m := args.match("-x", "--add10x", 2)):
-            if not add_sequence_file(ms, get_scanner(), m[1], out, is10x=True):
+            if not add_sequence_file(ms, get_scanner(), m[1], out, is10x=True,
+                                     builders=builders):
                 die("failed to open sequence file %s", m[1])
             ms.summary(out)
         elif ms is not None and (m := args.match("-m", "--merge", 2)):

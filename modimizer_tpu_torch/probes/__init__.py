@@ -2,8 +2,9 @@
 
 Ports of the JAX package's ``scripts/probe_*.py`` that time the k = 16 u32
 front and its ablations (``probe_pallas_parts``, ``probe_pallas_front``,
-``probe_chain_time``, ``probe_front_mxu``) and its micro-ops
-(``probe_front``).  Each is a module with ``main(argv=None, device=None)``
+``probe_chain_time``, ``probe_front_mxu``), its micro-ops
+(``probe_front``) and the compaction primitives (``probe_mosaic_prims``).
+Each is a module with ``main(argv=None, device=None)``
 that takes the script's positional arguments and variant names, holds each
 kernel against its plain version on the same inputs, times both on the card
 and prints one JSON line per variant::
