@@ -11,12 +11,16 @@ compaction-primitive probes on the card.
     python3 chip_smoke.py --phases env,build,kernels --small
     python3 chip_smoke.py --phases env,build,kernels,probes
 
-Prints one JSON line per phase, then a ``{"kernels": [...]}`` line, the
-card's ``name, power.limit`` line from nvidia-smi, and last
-``{"ok": true, "device": {...}}``.  Exits non-zero, without that last line,
-when CUDA is absent, the port cannot be imported (e.g. this file alone in a
-directory), a kernel fails to build or launch, or any check disagrees.
-Imports nothing of JAX.
+Prints one JSON line per phase, then a ``{"kernels": [...]}`` line (each
+kernel with its launches on the main path, its error against its plain
+version, its time, its plain version's, its bound and, where one PyTorch
+call computes the same function, that call's time), the card's ``name,
+power.limit`` line from nvidia-smi, and last ``{"ok": true, "device":
+{...}}``.  Exits non-zero, without that last line, when CUDA is absent, the
+port cannot be imported (e.g. this file alone in a directory), a kernel
+fails to build or launch, or any check disagrees.  Imports nothing of JAX
+and nothing of the JAX package: the host path it checks against is the
+port's own native host scan.
 """
 
 import argparse
@@ -34,6 +38,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main", "overflow", "profile",
           "probes")
 KW_PAIRS = [(16, 16), (11, 10), (13, 31), (19, 31), (24, 16), (31, 31)]
+# the emit test's edges on both k-mer widths: w = 1 (every position emits)
+# and w = 2^32 + 1 (a 32-bit hash is a multiple only when it is 0)
+KW_EDGES = [(16, 1), (19, 1), (16, (1 << 32) + 1), (19, (1 << 32) + 1)]
+BLK_SIZES = (128, 4096)      # besides BLK_COMPACT
+# scan_compact's (meta_isf, with_meta): positions (the builder), (p << 1) |
+# isF (scan_stream), k-mers only (the scanner's modutils -a)
+META_MODES = ((False, True), (True, True), (False, False))
 SEED = 17
 # what modutils -a launches on each path: the builder's device count (inputs
 # of 2^25 bases or more), and the streaming scanner
@@ -83,7 +94,7 @@ def random_chunk(rng, C, k, poly_a=False):
     from random read lengths."""
     import numpy as np
     import torch
-    from modimizer_tpu.native import lib as native_lib
+    from modimizer_tpu_torch.native import lib as native_lib
     n = C + k - 1
     codes = (np.zeros(n, np.uint8) if poly_a
              else rng.integers(0, 4, n).astype(np.uint8))
@@ -104,10 +115,15 @@ def random_chunk(rng, C, k, poly_a=False):
 
 
 def max_abs_err(pairs):
-    """0 when every pair is bit-identical, else the largest |a - b|."""
+    """0 when every pair is bit-identical, else the largest |a - b|; a pair
+    of absent outputs (None) agrees."""
     import torch
     err = 0.0
     for a, b in pairs:
+        if a is None or b is None:
+            if a is not b:
+                return float("inf")
+            continue
         if a.shape != b.shape:
             return float("inf")
         if not torch.equal(a, b):
@@ -135,11 +151,16 @@ def phase_env():
 
 
 def phase_build():
-    from modimizer_tpu_torch import _build
+    """The CUDA kernels (one nvcc a source, then a link) and the port's
+    native host library (g++), each timed."""
+    from modimizer_tpu_torch import _build, native
     t0 = time.perf_counter()
     so = _build.build()
     _build.lib()
-    say({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+    t1 = time.perf_counter()
+    native.lib()
+    say({"phase": "build", "seconds": round(t1 - t0, 3),
+         "native_seconds": round(time.perf_counter() - t1, 3),
          "library": os.path.relpath(so, HERE),
          "sources": [os.path.relpath(s, HERE) for s in _build.sources()]})
 
@@ -148,23 +169,23 @@ def phase_kernels(small, report):
     """Each kernel against its plain version on the card, bit for bit."""
     import numpy as np
     import torch
-    from modimizer_tpu.core.seqhash import Seqhash
-    from modimizer_tpu.ops.seqhash import scan_bo
+    from modimizer_tpu_torch.core.seqhash import Seqhash
     from modimizer_tpu_torch.ops.device_scan import densify, densify_ref
     from modimizer_tpu_torch.ops.scan_kernel import (kernel_params,
                                                      scan_compact,
                                                      scan_compact_ref)
+    from modimizer_tpu_torch.ops.consts import BLK_COMPACT, scan_bo
     from modimizer_tpu_torch.ops.seqhash import ModimizerScanner
-    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
     rng = np.random.default_rng(SEED)
     sizes = [1 << 15] if small else [1 << 15, 1 << 25]
     errs = {"scan_compact": 0.0, "densify": 0.0}
     n_cases = 0
 
-    def check_scan(sw, vb, kp, C, bo, meta_isf, tag):
+    def check_scan(sw, vb, kp, C, bo, meta_isf, tag, blk=BLK_COMPACT,
+                   with_meta=True):
         nonlocal n_cases
         args = dict(k=kp.k, w=kp.w, factor1=kp.factor1, C=C, bo=bo,
-                    meta_isf=meta_isf)
+                    meta_isf=meta_isf, blk=blk, with_meta=with_meta)
         got = scan_compact(sw, vb, **args)
         want = scan_compact_ref(sw, vb, **args)
         torch.cuda.synchronize()
@@ -177,7 +198,7 @@ def phase_kernels(small, report):
 
     def check_densify(rows, bo, cap, tag):
         out_k, out_meta, cnt = rows[0], rows[1], rows[2]
-        for meta in (None, out_meta):
+        for meta in (None, out_meta)[:1 if out_meta is None else 2]:
             got = densify(out_k, meta, cnt, bo=bo, cap=cap)
             want = densify_ref(out_k, meta, cnt, bo=bo, cap=cap)
             torch.cuda.synchronize()
@@ -189,17 +210,24 @@ def phase_kernels(small, report):
             if e:
                 fail("densify != densify_ref at %s" % tag)
 
+    # (k, w, blk) cases: the six pairs, the emit test's edges, and k16 w16 /
+    # k19 w31 in compaction blocks of 128 and 4096 positions
+    cases = ([(k, w, BLK_COMPACT) for k, w in KW_PAIRS + KW_EDGES]
+             + [(k, w, blk) for blk in BLK_SIZES
+                for k, w in ((16, 16), (19, 31))])
     for C in sizes:
-        for k, w in KW_PAIRS:
-            kp = kernel_params(Seqhash.create(k, w, SEED))
+        for k, w, blk in cases:
+            sh = Seqhash.create(k, w, SEED)
+            kp = kernel_params(sh)
             sw, vb = random_chunk(rng, C, k)
-            bo = scan_bo(w)
-            cap = ModimizerScanner(Seqhash.create(k, w, SEED), chunk=C,
-                                   device="cuda").cap
-            for meta_isf in (False, True):
-                tag = "C=2^%d k=%d w=%d meta_isf=%s" % (
-                    C.bit_length() - 1, k, w, meta_isf)
-                rows = check_scan(sw, vb, kp, C, bo, meta_isf, tag)
+            bo = scan_bo(w, blk)
+            cap = min((C // blk) * bo,
+                      ModimizerScanner(sh, chunk=C, device="cuda").cap)
+            for meta_isf, with_meta in META_MODES:
+                tag = "C=2^%d k=%d w=%d blk=%d meta_isf=%s with_meta=%s" % (
+                    C.bit_length() - 1, k, w, blk, meta_isf, with_meta)
+                rows = check_scan(sw, vb, kp, C, bo, meta_isf, tag, blk,
+                                  with_meta)
                 check_densify(rows, bo, cap, tag)
     # poly-A: k-mer 0 hashes to 0, every position emits, every block
     # overflows bo
@@ -212,37 +240,70 @@ def phase_kernels(small, report):
         fail("poly-A chunk did not overflow every block")
     check_densify(rows, bo, C // 4, "poly-A")
     say({"phase": "kernels", "cases": n_cases, "sizes": sizes,
-         "kw": KW_PAIRS, "max_abs_err": errs})
-
-    # time each kernel beside its plain version at the main path's shape
-    # (C = 2^25 unless --small; k=16 w=16, kmers-only, the bench cap)
-    C = sizes[-1]
-    sh = Seqhash.create(16, 16, SEED)
-    kp = kernel_params(sh)
-    bo = scan_bo(16)
-    cap = ModimizerScanner(sh, chunk=C, device="cuda").cap
-    sw, vb = random_chunk(rng, C, 16)
-    args = dict(k=kp.k, w=kp.w, factor1=kp.factor1, C=C, bo=bo,
-                meta_isf=False)
-    rows = scan_compact(sw, vb, **args)
-    # device time with the launches queued ahead (densify's wrapper takes
-    # about as long to enqueue as its kernel runs)
-    t = {"scan_compact": (
-            device_ms(lambda: scan_compact(sw, vb, **args), 20)[0],
-            device_ms(lambda: scan_compact_ref(sw, vb, **args), 3, 1)[0]),
-         "densify": (
-            device_ms(lambda: densify(rows[0], None, rows[2], bo=bo,
-                                      cap=cap), 20)[0],
-            device_ms(lambda: densify_ref(rows[0], None, rows[2], bo=bo,
-                                          cap=cap), 3, 1)[0])}
-    for name, (ms, plain_ms) in t.items():
-        report[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
-    say({"phase": "kernel_times", "C": C, "k": 16, "w": 16,
-         "ms": {n: v[0] for n, v in t.items()},
-         "plain_ms": {n: v[1] for n, v in t.items()},
-         "card": nvidia_smi_line()})
+         "kwb": cases, "max_abs_err": errs})
+    time_scan_kernels(small, report, errs)
     check_front_kernels(small, rng, report)
     check_mosaic_kernels(small, rng, report)
+
+
+def time_scan_kernels(small, report, errs):
+    """scan_compact at probe_scan_compact's shapes (the scanner's chunk of
+    2^25 at k16 w16 and at k19 w31, the builder's 2^22 at k16 w16, and a w
+    that never emits; 2^15 with --small), each beside its plain version and
+    its bound; densify at the scanner's shape."""
+    import torch
+    from modimizer_tpu_torch.ops.device_scan import densify, densify_ref
+    from modimizer_tpu_torch.ops.scan_kernel import (scan_compact,
+                                                     scan_compact_ref)
+    from modimizer_tpu_torch.ops.seqhash import ModimizerScanner
+    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.probes import probe_scan_compact as psc
+    from modimizer_tpu_torch.probes._timing import bound_ms
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    dev = torch.device("cuda")
+    shapes = {}
+    for name, (logc, k, w, _with_meta) in psc.SHAPES.items():
+        C = 1 << (15 if small else logc)
+        sw, vb, args = psc.shape_inputs(name, C, dev)
+        # device time with the launches queued ahead
+        ms = device_ms(lambda: scan_compact(sw, vb, **args), 20)[0]
+        plain = device_ms(lambda: scan_compact_ref(sw, vb, **args), 3, 1)[0]
+        b_ms, b_by = bound_ms(psc.scan_compact_bytes(
+            sw, vb, C, args["bo"], args["with_meta"]))
+        shapes[name] = {"C": C, "k": k, "w": w, "bo": args["bo"],
+                        "with_meta": args["with_meta"], "ms": ms,
+                        "plain_ms": plain, "bound_ms": b_ms,
+                        "bound_by": b_by, "bound_share": b_ms / ms}
+        if name == "scanner":
+            rows = scan_compact(sw, vb, **args)
+            bo = args["bo"]
+            cap = ModimizerScanner(Seqhash.create(k, w, SEED), chunk=C,
+                                   device=dev).cap
+            live = int(rows[2].clamp(max=bo).sum())
+            d_ms = device_ms(lambda: densify(rows[0], None, rows[2], bo=bo,
+                                             cap=cap), 20)[0]
+            d_plain = device_ms(lambda: densify_ref(rows[0], None, rows[2],
+                                                    bo=bo, cap=cap), 3, 1)[0]
+            # cnt in, the live rows in, cap rows out
+            d_bound = bound_ms(rows[2].numel() * 4 + live * 8 + cap * 8)
+    main = shapes["scanner"]
+    report["scan_compact"].update(
+        max_abs_err=errs["scan_compact"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], bound_share=main["bound_share"],
+        library_ms=None, library="none: no PyTorch call hashes, tests and "
+        "compacts k-mers", timed="scanner: C=2^%d k16 w16 kmers only"
+        % (main["C"].bit_length() - 1), shapes=shapes)
+    report["densify"].update(
+        max_abs_err=errs["densify"], ms=d_ms, plain_ms=d_plain,
+        bound_ms=d_bound[0], bound_by=d_bound[1],
+        bound_share=d_bound[0] / d_ms, library_ms=None,
+        library="none: the dense prefix of per-block rows is a mask, a "
+        "select and a pad", timed="scanner's rows at C=2^%d k16 w16"
+        % (main["C"].bit_length() - 1))
+    say({"phase": "kernel_times", "scan_compact": shapes,
+         "densify": {"ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound[0]},
+         "card": nvidia_smi_line()})
 
 
 def check_front_kernels(small, rng, report):
@@ -253,13 +314,14 @@ def check_front_kernels(small, rng, report):
     beside its plain version at the probes' default shapes."""
     import numpy as np
     import torch
-    from modimizer_tpu.core.seqhash import Seqhash
+    from modimizer_tpu_torch.core.seqhash import Seqhash
     from modimizer_tpu_torch.ops.front_kernel import (VARIANTS, front_planes,
                                                       front_planes_ref,
                                                       make_streams)
     from modimizer_tpu_torch.ops.front_mma import front_mma, front_mma_ref
     from modimizer_tpu_torch.ops.front_ops import (OPS, R_LAST, front_ops,
                                                    front_ops_ref)
+    from modimizer_tpu_torch.probes._timing import bound_ms, nbytes
     from modimizer_tpu_torch.probes._timing import time_ms as device_ms
     sizes = [1 << 15] if small else [1 << 15, 1 << 24]
     errs = dict.fromkeys(FRONT_KERNELS, 0.0)
@@ -300,8 +362,9 @@ def check_front_kernels(small, rng, report):
          "max_abs_err": errs})
 
     # times at the probes' default shapes: C = 2^24 (k16 w16, "full"), and
-    # u32 [8, 128, 1024] for the micro-ops ("dyn": the funnel's variable
-    # shift, 16 passes as the script's grid)
+    # u32 [8, 128, 1024] for the micro-ops (copy, the op one PyTorch call
+    # computes, and "dyn": the funnel's variable shift; 16 passes as the
+    # script's grid)
     C = sizes[-1]
     f1 = Seqhash.create(16, 16, SEED).factor1
     st = make_streams(random_chunk(rng, C, 16)[0], C // 16)
@@ -317,16 +380,34 @@ def check_front_kernels(small, rng, report):
          "front_mma": (
             device_ms(lambda: front_mma(*st, factor1=f1, w=16), 20)[0],
             device_ms(lambda: front_mma_ref(*st, factor1=f1, w=16), 3, 1)[0]),
-         "front_ops": (device_ms(lambda: front_ops(x, "dyn"), 20)[0],
-                       device_ms(lambda: front_ops_ref(x, "dyn"), 3, 1)[0])}
+         "front_ops": (device_ms(lambda: front_ops(x, "copy"), 20)[0],
+                       device_ms(lambda: front_ops_ref(x, "copy"), 3, 1)[0])}
+    dyn_ms = device_ms(lambda: front_ops(x, "dyn"), 20)[0]
+    # the planes in, km (int32) and em (int8) out; front_mma's [24, 8] limb
+    # product is 384 int8 operations a position
+    io = nbytes(*st, *front_planes(*st, **full))
+    bounds = {"front_planes": bound_ms(io),
+              "front_mma": bound_ms(io, 384 * C),
+              "front_ops": bound_ms(2 * nbytes(x))}
+    library = {"front_planes": (None, "none: no PyTorch call hashes "
+                                "k-mers"),
+               "front_mma": (None, "none: no PyTorch call hashes k-mers "
+                             "(PyTorch has no integer matmul on CUDA)"),
+               "front_ops": (device_ms(lambda: x.clone(), 20)[0],
+                             "x.clone()")}
     timed = {"front_planes": "C=2^%d k16 w16 full" % (C.bit_length() - 1),
              "front_mma": "C=2^%d k16 w16" % (C.bit_length() - 1),
-             "front_ops": "dyn r=0..15 on u32 [8, 128, 1024]"}
+             "front_ops": "copy r=0..15 on u32 [8, 128, 1024]"}
     for name, (ms, plain_ms) in t.items():
         report[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                            timed=timed[name])
+                            bound_ms=bounds[name][0],
+                            bound_by=bounds[name][1],
+                            bound_share=bounds[name][0] / ms,
+                            library_ms=library[name][0],
+                            library=library[name][1], timed=timed[name])
+    report["front_ops"]["dyn_ms"] = dyn_ms
     say({"phase": "front_kernel_times", "timed": timed,
-         "ms": {n: v[0] for n, v in t.items()},
+         "ms": {n: v[0] for n, v in t.items()}, "dyn_ms": dyn_ms,
          "plain_ms": {n: v[1] for n, v in t.items()},
          "card": nvidia_smi_line()})
 
@@ -340,6 +421,7 @@ def check_mosaic_kernels(small, rng, report):
     import torch
     from modimizer_tpu_torch.ops import mosaic_prims as mp
     from modimizer_tpu_torch.probes import probe_mosaic_prims
+    from modimizer_tpu_torch.probes._timing import bound_ms, nbytes
     from modimizer_tpu_torch.probes._timing import time_ms as device_ms
     sizes = [1 << 16] if small else [1 << 16, 1 << 24]
     errs = dict.fromkeys(MOSAIC_KERNELS, 0.0)
@@ -375,16 +457,53 @@ def check_mosaic_kernels(small, rng, report):
     for name in MOSAIC_KERNELS:
         args = probe_mosaic_prims.inputs(probe[name], C, torch.device("cuda"))
         fn, plain = getattr(mp, name), getattr(mp, name + "_ref")
+        lib_fn, lib_name = mosaic_library_call(name, args)
         t[name] = (device_ms(lambda: fn(*args), 20)[0],
-                   device_ms(lambda: plain(*args), 3, 1)[0])
+                   device_ms(lambda: plain(*args), 3, 1)[0],
+                   None if lib_fn is None else device_ms(lib_fn, 20)[0])
+        b_ms, b_by = bound_ms(
+            nbytes(*probe_mosaic_prims.reads(probe[name], args), fn(*args)),
+            probe_mosaic_prims.int8_ops(probe[name], args))
         report[name].update(max_abs_err=errs[name], ms=t[name][0],
-                            plain_ms=t[name][1],
+                            plain_ms=t[name][1], bound_ms=b_ms,
+                            bound_by=b_by, bound_share=b_ms / t[name][0],
+                            library_ms=t[name][2], library=lib_name,
                             timed="C=2^%d, the probe's inputs"
                             % (C.bit_length() - 1))
     say({"phase": "mosaic_kernel_times", "C": C,
          "ms": {n: v[0] for n, v in t.items()},
          "plain_ms": {n: v[1] for n, v in t.items()},
+         "library_ms": {n: v[2] for n, v in t.items()},
          "card": nvidia_smi_line()})
+
+
+def mosaic_library_call(name, args):
+    """(one PyTorch call that computes the kernel's function on the same
+    inputs, its description), or (None, why there is none).  Index
+    preparation happens here, outside the timed call."""
+    import torch
+    from modimizer_tpu_torch.ops import mosaic_prims as mp
+    if name == "tala16":
+        x, idx = args
+        rows = (idx[:mp.TALA_OUT] & 15).to(torch.int64)
+        return (lambda: torch.gather(x, 0, rows),
+                "torch.gather(x, 0, idx[:8] & 15), index cast beforehand")
+    if name == "cumsum128":
+        return (lambda: torch.cumsum(args[0], 1, dtype=torch.int32),
+                "torch.cumsum(e, 1, dtype=int32)")
+    if name == "dot16":
+        rank, cols = args
+        nb = rank.shape[0]
+        keep = (rank >= 0) & (rank < mp.DOT_BO)
+        blk = torch.arange(nb, dtype=torch.int64, device=rank.device)[:, None]
+        dest = (blk * mp.DOT_BO + rank.to(torch.int64))[keep]
+        vals = cols[keep].to(torch.int32)
+        out = torch.zeros(nb * mp.DOT_BO, mp.DOT_NC, dtype=torch.int32,
+                          device=rank.device)
+        return (lambda: out.index_add_(0, dest, vals),
+                "out.index_add_(0, slot, cols), slots and int32 cols "
+                "prepared beforehand")
+    return None, "none: twelve roll-and-add stages are twelve calls"
 
 
 def write_reads(path, n_reads, read_len, seed):
@@ -453,17 +572,20 @@ def run_port(argv, launches, path):
 
 
 def run_host(argv):
-    """The JAX package's modutils on its native host scan (a subprocess,
-    MODIMIZER_SCAN=host; no jax is imported there either): (stdout, wall)."""
-    env = dict(os.environ, MODIMIZER_SCAN="host")
+    """The port's modutils on its native host scan (MODIMIZER_SCAN=host, no
+    device), in this process like run_port, so that neither wall time
+    counts an import; the CPU tests hold this path byte for byte against
+    the JAX CLI's host path: (stdout, wall)."""
+    from modimizer_tpu_torch.cli import modutils as port_cli
+    out = io.StringIO()
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "modimizer_tpu.cli.modutils"]
-                       + argv, cwd=HERE, env=env, capture_output=True,
-                       text=True)
+    with environ(MODIMIZER_SCAN="host"), contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        scanner = port_cli.run(argv)
     wall = time.perf_counter() - t0
-    if r.returncode != 0:
-        fail("host modutils rc %d: %s" % (r.returncode, r.stderr[-2000:]))
-    return r.stdout, wall
+    if scanner is None or scanner.device is not None or scanner.used_device:
+        fail("%s: the host path did not run on the host" % argv)
+    return out.getvalue(), wall
 
 
 def run_cases(work, fa, params, tag, launches, paths):
@@ -512,8 +634,8 @@ def run_cases(work, fa, params, tag, launches, paths):
 
 @contextlib.contextmanager
 def main_sizes(small):
-    """With --small, 2 Mbp is below 2^25 and the scanner's host threshold:
-    lower the device-count threshold, and scan on the card at any size."""
+    """With --small, 2 Mbp is below 2^25: lower the device-count threshold
+    so that the builder path runs too."""
     from modimizer_tpu_torch.cli import modutils as port_cli
     if not small:
         yield
@@ -521,8 +643,7 @@ def main_sizes(small):
     threshold = port_cli.DEVICE_COUNT_THRESHOLD
     port_cli.DEVICE_COUNT_THRESHOLD = 1 << 20
     try:
-        with environ(MODIMIZER_SCAN="device"):
-            yield
+        yield
     finally:
         port_cli.DEVICE_COUNT_THRESHOLD = threshold
 
@@ -543,8 +664,16 @@ def run_main(small, work, launches):
     write_reads(fa20, n20, 1000, 43)
     run_cases(work, fa20, (26, 19, 31, 17), "k19w31", launches,
               ("builder",) if small else ("scanner",))
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    check_imports()
+
+
+def check_imports():
+    """Nothing of JAX and nothing of the JAX package was imported."""
+    bad = [m for m in sys.modules
+           if m == "jax" or m.startswith("jax.") or m == "modimizer_tpu"
+           or m.startswith("modimizer_tpu.")]
+    if bad:
+        fail("imported %s" % bad[:5])
 
 
 def phase_overflow():
@@ -554,21 +683,19 @@ def phase_overflow():
     w31): it replays the chunks at a wider bo, and its count is the
     sequential build's."""
     import numpy as np
-    from modimizer_tpu.core.seqhash import Seqhash
-    from modimizer_tpu.ops.seqhash import ModimizerScanner as HostScanner
-    from modimizer_tpu_torch.ops.seqhash import ModimizerScanner
+    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.ops.seqhash import (ModimizerScanner,
+                                                 first_encounter_unique)
     sh = Seqhash.create(16, 16, SEED)
     rng = np.random.default_rng(8)
     codes = rng.integers(0, 4, 1 << 15).astype(np.uint8)
     codes[5000:5000 + 220] = 0
     offsets = np.array([0, len(codes)], np.int64)
-    host = HostScanner(sh, host_threshold=1 << 62)
-    dev = ModimizerScanner(sh, chunk=1 << 14, device="cuda",
-                           host_threshold=0)
+    host = ModimizerScanner(sh, host=True)
+    dev = ModimizerScanner(sh, chunk=1 << 14, device="cuda", host=False)
     same_k = np.array_equal(dev.scan_kmers(codes, offsets),
                             host.scan_kmers(codes, offsets))
-    dev2 = ModimizerScanner(sh, chunk=1 << 14, device="cuda",
-                            host_threshold=0)
+    dev2 = ModimizerScanner(sh, chunk=1 << 14, device="cuda", host=False)
     got = dev2.scan_stream(codes, offsets)
     want = host.scan_stream(codes, offsets)
     same_s = all(np.array_equal(a, b) for a, b in zip(got, want))
@@ -581,7 +708,6 @@ def phase_overflow():
     if not (tiers[0] > 0 and tiers[2] > 0 and tiers[1] == tiers[3] == 0):
         fail("poly-A run did not take the wide retry alone: %s" % (tiers,))
 
-    from modimizer_tpu.ops.seqhash import first_encounter_unique
     from modimizer_tpu_torch.parallel.sharded import ShardedModsetBuilder
     lens = rng.integers(100, 1000, 200)
     seqs = [rng.integers(0, 4, n).astype(np.uint8) for n in lens]
@@ -591,7 +717,7 @@ def phase_overflow():
     # k16 w16 (32-bit k-mers) and k19 w31 (64-bit k-mers)
     for k, w in ((16, 16), (19, 31)):
         sh = Seqhash.create(k, w, SEED)
-        host = HostScanner(sh, host_threshold=1 << 62)
+        host = ModimizerScanner(sh, host=True)
         b = ShardedModsetBuilder(sh, "cuda", chunk_per_dev=1 << 14,
                                  state_size=1 << 12, max_buffer_rows=1 << 14)
         bo0 = b.bo
@@ -613,8 +739,9 @@ def phase_overflow():
 
 
 def device_busy(prof):
-    """(busy ms, top rows) of a torch.profiler run: the union of the card's
-    kernel, copy and set intervals, and the device time by name.  Only the
+    """(busy ms, top rows, the port's kernels) of a torch.profiler run: the
+    union of the card's kernel, copy and set intervals, the device time by
+    name, and [ms, launches] of each kernel of PATH_KERNELS.  Only the
     device-side events count: the host op rows that launched them carry the
     same time again."""
     from torch.autograd import DeviceType
@@ -634,7 +761,12 @@ def device_busy(prof):
         t, n = by_name.get(e.name, (0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return busy / 1e3, [[name[:60], t / 1e3, n] for name, (t, n) in top]
+    ours = {}
+    for k in set(PATH_KERNELS["scanner"]):
+        rows = [v for name, v in by_name.items() if k + "_kernel" in name]
+        ours[k] = [sum(t for t, _ in rows) / 1e3, sum(n for _, n in rows)]
+    return (busy / 1e3, [[name[:60], t / 1e3, n] for name, (t, n) in top],
+            ours)
 
 
 def phase_profile(small, work):
@@ -644,7 +776,7 @@ def phase_profile(small, work):
     each path under torch.profiler: the card's busy time and its idle share
     of the command's wall time, with the top device rows."""
     import torch
-    from modimizer_tpu.utils import profiling
+    from modimizer_tpu_torch.utils import profiling
     fa = os.path.join(work, "reads200.fa")
     if not os.path.exists(fa):
         write_reads(fa, 2_000 if small else 200_000, 1000, 42)
@@ -667,11 +799,12 @@ def phase_profile(small, work):
             for path in ("builder", "scanner"):
                 with torch.profiler.profile(activities=acts) as prof:
                     _, wall, _, _ = run_port(argv, {}, path)
-                busy_ms, top = device_busy(prof)
+                busy_ms, top, ours = device_busy(prof)
                 say({"phase": "profile", "path": path,
                      "profiled_wall_s": wall, "device_busy_ms": busy_ms,
                      "idle_share": 1 - busy_ms / 1e3 / wall,
-                     "top_device_ms": top, "card": nvidia_smi_line()})
+                     "kernel_device_ms": ours, "top_device_ms": top,
+                     "card": nvidia_smi_line()})
     finally:
         profiling._enabled = enabled
         profiling._stages.clear()
@@ -792,8 +925,7 @@ def main(argv=None):
         shutil.rmtree(work, ignore_errors=True)
     for name, n in launches.items():
         report[name]["launches"] = n
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    check_imports()
     say({"kernels": list(report.values())})
     print(nvidia_smi_line(), flush=True)
     say({"ok": True, "device": {"platform": "gpu",

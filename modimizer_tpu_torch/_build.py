@@ -115,7 +115,8 @@ def _declare(L):
     L.mz_scan_compact.restype = ctypes.c_int
     L.mz_scan_compact.argtypes = [
         p, p,                  # sw, vbits
-        i64, i32, u64, u64,    # C, k, w, factor1
+        i64, i32, u64,         # C, k, factor1
+        u64, i32, u64,         # the emit test: minv, rot, limit
         i32, i32, i32,         # blk, bo, meta_isf
         p, p, p, p, p,         # out_k, out_meta, cnt, n_emit, overflow
         p]                     # stream

@@ -2,13 +2,15 @@
 ``-x`` and ``-P`` scanning through ``modimizer_tpu_torch``'s scanner.
 
 Same ordered-command surface and output text as ``modimizer_tpu.cli.
-modutils`` (and the reference modutils.c); the jax-free helpers are imported
-from there.  As in the JAX CLI, an input of ``DEVICE_COUNT_THRESHOLD``
-(2^25) bases or more bound for the device is read whole and counted on the
-device (``parallel.sharded.ShardedModsetBuilder``), and only its unique
-k-mers with their counts are replayed into the table; smaller inputs, or any
-with ``MODIMIZER_NO_DEVICE_COUNT`` set, go through the streaming scanner.
-The output is byte-identical either way.
+modutils`` (and the reference modutils.c), on the port's own copies of the
+host modules (``core``, ``io``, ``native``, ``utils``, ``cli.common``).  As
+in the JAX CLI, an input of ``DEVICE_COUNT_THRESHOLD`` (2^25) bases or more
+bound for the device is read whole and counted on the device
+(``parallel.sharded.ShardedModsetBuilder``), and only its unique k-mers
+with their counts are replayed into the table; smaller inputs, or any with
+``MODIMIZER_NO_DEVICE_COUNT`` set, go through the streaming scanner.  The
+output is byte-identical either way, and to the native host scan's
+(``MODIMIZER_SCAN=host``).
 
     python -m modimizer_tpu_torch.cli.modutils -c 26 16 16 17 -a reads.fa -w X.mod
 """
@@ -19,26 +21,91 @@ import sys
 import numpy as np
 import torch
 
-from modimizer_tpu.cli.common import Args, OutFile, cli_guard, die, finish
-from modimizer_tpu.cli.modutils import (DEVICE_COUNT_THRESHOLD,
-                                        _est_stream_len, depth_histogram,
-                                        report_depths, usage)
-from modimizer_tpu.core.modset import Modset
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.io import seqio
-from modimizer_tpu.utils import profiling
-from modimizer_tpu.utils.timers import Timer
-
-from ..ops.seqhash import _NO_DEVICE, ModimizerScanner
+from ..core.modset import Modset
+from ..core.seqhash import Seqhash
+from ..io import seqio
+from ..ops.seqhash import ModimizerScanner
 from ..parallel.sharded import ShardedModsetBuilder
+from ..utils import profiling
+from ..utils.timers import Timer
+from .common import Args, OutFile, cli_guard, die, finish
+
+
+def usage():
+    e = sys.stderr.write
+    e("Usage: modutils <commands>\n")
+    e("Commands are executed in order - set parameters before using them!\n")
+    e("  -v | --verbose : toggle verbose mode\n")
+    e("  -o | --output <output filename> : '-' for stdout\n")
+    e("  -c | --modcreate table_bits{28} kmer{19} mod{31} seed{17}: can truncate parameters\n")
+    e("  -w | --write <mod file> : custom binary\n")
+    e("  -r | --read <mod file>\n")
+    e("  -wt | --writetext <text file> : kmer,count,flags tab-separated\n")
+    e("  -rt | --readtext <text file>  : hasher params in header line\n")
+    e("  -a | --add <read file> : add kmers from read file\n")
+    e("  -x | --add10x <10x read file> : add kmers from 10x read file\n")
+    e("  -m | --merge <mod file> : add kmers from read file; writes depths\n")
+    e("  -p | --prune <min> <max> : remove mod entries < min or >= max\n")
+    e("  -s | --setcopy <copy1min> <copy2min> <copyMmin> : reset mod copy\n")
+    e("  -sM | --setcopyM <copyMmin> : set copyM if depth > copyMmin\n")
+    e("  -H | --hist <outfile> : print depth histogram\n")
+    e("  -d | --depth <outfile> <mod file>* : print depth per mod [also in other files]\n")
+    e("  -P | --refpaint <ref seqfile> : print depth per mod along a reference sequence\n")
+    e("command -c or -r must come before other commands from -w onwards\n")
+    e("read files can be fasta or fastq, gzipped or not\n")
+    e("example usage\n")
+    e("  modutils -c 30 19 31 17 -a XR1.fa.gz -a XR2.fa.gz -w X.mod\n")
+    e("  modutils -c 30 19 31 17 -a YR1.fa.gz -a YR2.fa.gz -w Y.mod\n")
+    e("  modutils -r X.mod -m Y.mod -w XY1.mod -H XY.his\n")
+    e("then look at histogram XY.his and decide on thresholds, then\n")
+    e("  modutils -r XY1.mod -p 5 200 -s 10 50 100 -w XY2.mod\n")
+    e("  modutils -r XY2.mod -d XY.depths X.mod Y.mod\n")
+    e("XY.depths will have columns: hash, depth_in_XY2, depth_inX, depth_in_Y\n")
+
+
+DEVICE_COUNT_THRESHOLD = 1 << 25  # streams >= 32 Mbase count on device
+
+
+def _est_stream_len(filename) -> int:
+    """Cheap decompressed-size estimate for routing (file size; gzip ISIZE
+    trailer, mod 2^32, for gzipped input).  -1 if the file is unreadable."""
+    try:
+        sz = os.path.getsize(filename)
+        with open(filename, "rb") as f:
+            if f.read(2) == b"\x1f\x8b" and sz >= 4:
+                f.seek(-4, 2)
+                sz = int.from_bytes(f.read(4), "little")
+        return sz
+    except OSError:
+        return -1
+
+
+def depth_histogram(ms: Modset, f):
+    h = ms.depth_histogram()
+    for i in range(len(h)):
+        if h[i]:
+            f.write("DP\t%d\t%d\n" % (i, h[i]))
+
+
+def report_depths(ms: Modset, others, f):
+    """modutils reportDepths (modutils.c:65-77)."""
+    n = ms.max
+    vals = ms.value[1:n + 1]
+    cols = [other.find_batch(vals) for other in others]
+    for i in range(n):
+        f.write("MH\t%x\t%d\t%d" % (int(vals[i]), int(ms.info[i + 1] & 3),
+                                    int(ms.depth[i + 1])))
+        for j, other in enumerate(others):
+            idx = cols[j][i]
+            f.write("\t%d" % (int(other.depth[idx]) if idx else 0))
+        f.write("\n")
 
 
 def _count_on_device(scanner: ModimizerScanner, n_bases: int) -> bool:
     """The JAX CLI's rule (modimizer_tpu/cli/modutils.py:84-88,139-140):
     a stream of DEVICE_COUNT_THRESHOLD bases or more that the scanner would
     scan on its torch device is counted there whole."""
-    return (scanner.device is not None
-            and scanner.host_threshold < _NO_DEVICE
+    return (scanner.device is not None and not scanner.host
             and n_bases >= DEVICE_COUNT_THRESHOLD
             and not os.environ.get("MODIMIZER_NO_DEVICE_COUNT"))
 
@@ -48,9 +115,10 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
     """modutils addSequenceFile (modutils.c:33-51).  Inputs counted on the
     device (``_count_on_device``) are read whole, counted by the builder
     and replayed once as unique k-mers with counts; other FASTA/FASTQ
-    inputs at or above the scanner's host threshold take the parse-ahead
-    streaming path (parsing overlaps the device scan and the table replay);
-    the rest read the whole file and go through scan_kmers.  Same table
+    inputs bound for the device take the parse-ahead streaming path
+    (parsing overlaps the device scan and the table replay); the rest (the
+    host scan, 10x, other formats) read the whole file and go through
+    scan_kmers.  Same table
     either way.  When ``builders`` is a list, the input's builder is
     appended to it, or None when the scanner scanned it."""
     builder = None
@@ -58,8 +126,8 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
     if est < 0:
         return False
     if (not is10x and not _count_on_device(scanner, est)
-            and est >= scanner.host_threshold):
-        from modimizer_tpu.io.stream_seq import iter_seq_batches
+            and not scanner.host):
+        from ..io.stream_seq import iter_seq_batches
         try:
             it = iter_seq_batches(filename, seqio.dna2index_n0())
             first = next(it, None)
@@ -125,8 +193,9 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
 
 def main(argv=None, device=None):
     """Run modutils commands in order.  device: a torch.device (or its
-    name) for the scan; None takes CUDA when present, else the native host
-    scan."""
+    name) for the scan; None takes the CUDA card and raises without one.
+    ``device="cpu"`` runs the kernels' plain versions; MODIMIZER_SCAN=host
+    asks for the native host scan (no card needed)."""
     run(sys.argv[1:] if argv is None else argv, device)
 
 

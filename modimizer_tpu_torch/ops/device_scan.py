@@ -97,8 +97,9 @@ def scan_kmers_body(sw, vbits, *, k, w, factor1, bo, cap):
     """Kmers-only chunk for table builds: (dense kmers int64 [cap] in exact
     stream order, total int32 scalar; total < 0 flags overflow)."""
     C = 32 * (sw.shape[0] - 2)
-    out_k, _meta, cnt, n_emit, overflow = scan_compact(
-        sw, vbits, k=k, w=w, factor1=factor1, C=C, bo=bo, meta_isf=False)
+    out_k, _none, cnt, n_emit, overflow = scan_compact(
+        sw, vbits, k=k, w=w, factor1=factor1, C=C, bo=bo, meta_isf=False,
+        with_meta=False)
     cap = min(cap, out_k.shape[0])
     dk, _ = densify(out_k, None, cnt, bo=bo, cap=cap)
     return dk, _total(n_emit, overflow, cap)

@@ -9,9 +9,11 @@ reaches 64.  Canonical k-mers and hashes are below 2^62 (k <= 31), so signed
 compares and ``%`` on them are exact; full-range words (the funnel inputs,
 Lemire products) go through ``lsr`` and ``ule``.
 
-The host packers are reused, not ported: ``pack_sw``/``pack_bits`` in the JAX
-package (tests) and the native ``pk_pack2``/``pk_valid_words`` (the scanner).
+The host packers are the native ``pk_pack2``/``pk_valid_words`` (``native``);
+the tests also use the JAX package's ``pack_sw``/``pack_bits``.
 """
+
+from typing import NamedTuple
 
 import torch
 
@@ -98,6 +100,27 @@ def _inv_odd(m: int, bits: int) -> int:
     for _ in range(6):
         x = (x * (2 - m * x)) % (1 << bits)
     return x
+
+
+class EmitTest(NamedTuple):
+    """Constants of the division-free test ``h % w == 0`` for hashes below
+    2^bits: ``rotr_bits(h * minv mod 2^bits, rot) <= limit``."""
+    minv: int           # inverse of w's odd part, mod 2^bits
+    rot: int            # trailing zero bits of w
+    limit: int          # (2^bits - 1) // w
+
+
+def emit_test(w: int, bits: int) -> EmitTest:
+    """The test of Granlund and Montgomery (Hacker's Delight 10-17): for
+    w = m 2^t with m odd and 0 <= h < 2^bits, w divides h exactly when
+    h * inv(m) mod 2^bits, rotated right by t, is at most (2^bits - 1) // w.
+    For w >= 2^bits only h = 0 is a multiple, which (1, 0, 0) tests."""
+    if w < 1:
+        raise ValueError("emit_test: w=%d < 1" % w)
+    if w >> bits:
+        return EmitTest(1, 0, 0)
+    t = (w & -w).bit_length() - 1
+    return EmitTest(_inv_odd(w >> t, bits), t, ((1 << bits) - 1) // w)
 
 
 def mod_is_zero(hashes, w: int):

@@ -1,4 +1,4 @@
-"""Streaming modimizer scanner on PyTorch (port of the device half of
+"""Streaming modimizer scanner on PyTorch (port of
 ``modimizer_tpu/ops/seqhash.py::ModimizerScanner``).
 
 Chunking, the carry buffer of ``scan_kmers_batches``, ``bo``/``cap`` and the
@@ -12,13 +12,14 @@ CUDA event.  A chunk is read only after its event has completed, while up to
 ``max_inflight`` later chunks are already queued behind it.
 
 Device policy (no hidden fallback):
-  - ``device=None`` takes CUDA when ``torch.cuda.is_available()``; with no
-    CUDA it takes the native host scan, the JAX package's own
-    no-accelerator policy.  ``MODIMIZER_SCAN=device`` with no CUDA raises.
+  - ``device=None`` takes the CUDA card and raises without one
+    (``require_cuda``), unless the caller asked for the host scan: then the
+    scanner holds no device.
+  - the native host scan runs only when asked for: ``host=True``, or
+    ``MODIMIZER_SCAN=host`` when ``host`` is not given.  Every scan of such
+    a scanner runs on the host, whatever its length.
   - an explicit ``torch.device("cpu")`` runs the kernels' plain PyTorch
-    versions (host threshold 0 unless given).
-  - ``MODIMIZER_SCAN=host|device`` sets the host threshold as in the JAX
-    scanner.
+    versions.
 """
 
 import os
@@ -26,64 +27,130 @@ import os
 import numpy as np
 import torch
 
-from modimizer_tpu.native import lib as native_lib
-from modimizer_tpu.ops import seqhash as _jax_seqhash
-from modimizer_tpu.ops.seqhash import (BLOCK, DEFAULT_CHUNK, _validity_filter,
-                                       scan_bo)
-from modimizer_tpu.utils import profiling
-
 from .. import require_cuda
+from ..native import lib as native_lib
+from ..utils import profiling
+from .consts import BLK_COMPACT, BLOCK, scan_bo
 from .device_scan import scan_chunk, scan_kmers_body
 from .scan_kernel import kernel_params
 
-# the JAX scanner's host-only methods (native OpenMP scan, chunk rescan,
-# rid/rpos walk, the wide-retry sizing) never touch jax: reuse them as is
-_Jax = _jax_seqhash.ModimizerScanner
-_NO_DEVICE = 1 << 62
+# 32 Mbase per device dispatch (the JAX scanner's MODIMIZER_CHUNK)
+DEFAULT_CHUNK = int(os.environ.get("MODIMIZER_CHUNK", str(1 << 25)))
+
+
+def _validity_filter(gpos: np.ndarray, offsets: np.ndarray, k: int):
+    """Keep emitted positions whose k-mer lies inside one read."""
+    rid = np.searchsorted(offsets, gpos, side="right") - 1
+    ok = (rid >= 0) & (gpos + k <= offsets[np.minimum(rid + 1,
+                                                      len(offsets) - 1)])
+    ok &= rid < len(offsets) - 1
+    return ok, rid
+
+
+def first_encounter_unique(kmers: np.ndarray):
+    """(unique kmers in first-encounter stream order, counts) — the exact
+    insertion stream the reference's sequential table build would produce."""
+    if len(kmers) == 0:
+        return np.zeros(0, np.uint64), np.zeros(0, np.uint32)
+    uniq, first_idx, counts = np.unique(kmers, return_index=True,
+                                        return_counts=True)
+    order = np.argsort(first_idx, kind="stable")
+    return uniq[order], counts[order].astype(np.uint32)
 
 
 class ModimizerScanner:
     """Streams a flat base-code stream through the device scan and yields
     (kmers, global positions, isF) in exact stream order."""
 
-    HOST_THRESHOLD = _Jax.HOST_THRESHOLD
-
     def __init__(self, sh, chunk: int = DEFAULT_CHUNK, device=None,
-                 host_threshold: int = None):
-        mode = os.environ.get("MODIMIZER_SCAN", "auto")
+                 host: bool = None):
+        if host is None:
+            host = os.environ.get("MODIMIZER_SCAN") == "host"
         if device is not None:
             device = torch.device(device)
-        elif torch.cuda.is_available() or mode == "device":
+        elif not host:
             device = require_cuda()
-        if host_threshold is None:
-            if mode == "device":
-                host_threshold = 0
-            elif mode == "host" or device is None:
-                host_threshold = _NO_DEVICE
-            elif device.type == "cuda":
-                host_threshold = self.HOST_THRESHOLD
-            else:
-                host_threshold = 0
-        if device is None and host_threshold < _NO_DEVICE:
-            require_cuda()
         self.sh = sh
         self.kp = kernel_params(sh)
         self.device = device          # None: native host scan only
         self.chunk = max(BLOCK, (chunk // BLOCK) * BLOCK)
         self.bo = scan_bo(sh.w)
-        self.cap = int(min((self.chunk // _jax_seqhash.BLK_COMPACT) * self.bo,
+        # dense download rows: expected emits (chunk/w) + 12.5% (min 64K)
+        # margin for skewed composition; overflow takes the wide retry
+        self.cap = int(min((self.chunk // BLK_COMPACT) * self.bo,
                            max(4096, self.chunk // sh.w
                                + max(self.chunk // (8 * sh.w), 65536))))
         self.max_inflight = 4
-        self.host_threshold = host_threshold
+        self.host = bool(host)        # every scan on the native host scan
         self.used_device = False      # set per scan call
         self.n_wide = 0               # chunks retried at 4x bo on device
         self.n_fallback = 0           # chunks that hit the native rescan
 
-    _wide = _Jax._wide
-    _scan_host = _Jax._scan_host
-    _rescan_rows = _Jax._rescan_rows
-    scan_batch = _Jax.scan_batch
+    def _wide(self):
+        """bo/cap for the device-side overflow retry: 4x capacity handles
+        emit bursts (e.g. poly-A runs, which emit at every position since
+        kmer 0 hashes to 0) up to ~4x the 6-sigma margin without abandoning
+        the chunk to the host rescan."""
+        bo = int(min(BLK_COMPACT, self.bo * 4))
+        cap = int(min((self.chunk // BLK_COMPACT) * bo, self.cap * 4))
+        return bo, cap
+
+    # ---- the native host scan ----
+
+    def _scan_host(self, codes, offsets):
+        """Whole-stream host scan via the native OpenMP rolling-hash kernel
+        (native/modasm_native.cpp sh_scan_emit_reads): read-boundary-aware,
+        so no separate validity pass is needed.  Returns (kmers, gpos,
+        isF)."""
+        sh = self.sh
+        n = len(codes)
+        if n < sh.k:
+            return (np.zeros(0, np.uint64), np.zeros(0, np.int64),
+                    np.zeros(0, bool))
+        cap = max(4096, (n // sh.w) * 4 + 1024)
+        L = native_lib()
+        codes = np.ascontiguousarray(codes).view(np.uint8)
+        offsets = np.ascontiguousarray(offsets, np.int64)
+        while True:
+            out_k = np.empty(cap, np.uint64)
+            out_p = np.empty(cap, np.int64)
+            out_f = np.empty(cap, np.uint8)
+            cnt = L.sh_scan_emit_reads(codes, offsets, len(offsets) - 1,
+                                       sh.k, sh.w, sh.factor1, sh.shift1,
+                                       out_k, out_p, out_f, cap)
+            if cnt >= 0:
+                break
+            cap = -cnt
+        return (out_k[:cnt], out_p[:cnt], out_f[:cnt].astype(bool))
+
+    def _rescan_rows(self, s, m, codes, offsets):
+        """Exact per-chunk overflow fallback on the native OpenMP kernel.
+
+        Read-boundary semantics match the device path's validity mask: a
+        kmer at global pos p < s+m is emitted iff it lies fully inside one
+        read.  Clipping offsets to the segment preserves that — clipped
+        read *starts* can only move to s (every kmer here starts at >= s
+        anyway) and clipped *ends* only cut kmers ending past s+m+k-2,
+        which no kmer with pos < s+m does.  Returns (kmers, gpos, isF)."""
+        k = self.sh.k
+        seg = np.ascontiguousarray(codes[s:s + m + k - 1])
+        lo = np.clip(offsets, s, s + len(seg)) - s
+        kms, pos, isF = self._scan_host(seg, lo)
+        keep = pos < m
+        return kms[keep], pos[keep] + s, isF[keep]
+
+    def scan_batch(self, batch):
+        """Scan a SeqBatch; returns (kmers, read_ids, read_pos, isF)."""
+        offsets = np.ascontiguousarray(batch.offsets, np.int64)
+        kmers, gpos, isF = self.scan_stream(batch.codes, offsets)
+        # gpos is ascending (stream order): one native walk beats
+        # searchsorted + two np.repeat temporaries
+        gpos = np.ascontiguousarray(gpos, np.int64)
+        rid = np.empty(len(gpos), np.int64)
+        rpos = np.empty(len(gpos), np.int64)
+        native_lib().sh_rid_rpos(gpos, len(gpos), offsets,
+                                 len(offsets) - 1, rid, rpos)
+        return kmers, rid, rpos, isF
 
     # ---- host <-> device ----
 
@@ -148,7 +215,10 @@ class ModimizerScanner:
 
     def _require_device(self):
         if self.device is None:
-            require_cuda()
+            raise RuntimeError(
+                "ModimizerScanner: this scanner was made for the host scan "
+                "alone (MODIMIZER_SCAN=host or host=True) and holds no "
+                "CUDA device for a device scan")
         self.used_device = True
 
     def scan_kmers(self, codes: np.ndarray, offsets: np.ndarray,
@@ -162,7 +232,7 @@ class ModimizerScanner:
         codes = np.ascontiguousarray(codes).view(np.uint8)
         offsets = np.asarray(offsets, np.int64)
         sink = _Sink(consumer)
-        if n < self.host_threshold:
+        if self.host:
             self.used_device = False
             sink(self._scan_host(codes, offsets)[0])
             return sink.result()
@@ -181,17 +251,18 @@ class ModimizerScanner:
                 lambda: self._rescan_rows(s, min(C, n - s), codes,
                                           offsets)[0]))
 
-        pending = []
-        for s in range(0, n, C):
-            with profiling.stage("scan.pack"):
-                sw = self._put_sw(codes[s:s + C + k - 1])
-                vb = self._put_words(vwords[s // 64:s // 64 + C // 64])
-            with profiling.stage("scan.dispatch"):
-                pending.append((s, sw, vb, self._launch_kmers(sw, vb)))
-            if len(pending) > self.max_inflight:
-                drain(pending.pop(0))
-        for entry in pending:
-            drain(entry)
+        with profiling.trace_region():
+            pending = []
+            for s in range(0, n, C):
+                with profiling.stage("scan.pack"):
+                    sw = self._put_sw(codes[s:s + C + k - 1])
+                    vb = self._put_words(vwords[s // 64:s // 64 + C // 64])
+                with profiling.stage("scan.dispatch"):
+                    pending.append((s, sw, vb, self._launch_kmers(sw, vb)))
+                if len(pending) > self.max_inflight:
+                    drain(pending.pop(0))
+            for entry in pending:
+                drain(entry)
         return sink.result()
 
     def scan_kmers_batches(self, batches, consumer=None):
@@ -236,7 +307,7 @@ class ModimizerScanner:
 
         def rescan_window(sa):
             # exact host rescan of the chunk window (clipping argument: see
-            # the JAX scanner's _rescan_rows)
+            # _rescan_rows)
             rel = sa - base
             m = min(C, n_in - sa)
             seg = np.ascontiguousarray(buf[rel:rel + m + halo])
@@ -248,39 +319,40 @@ class ModimizerScanner:
             sa, (sw, vb, fut) = entry
             sink(self._finish_kmers(fut, sw, vb, lambda: rescan_window(sa)))
 
-        it = iter(batches)
-        while True:
-            while not eof and n_in - s < C + halo:
-                try:
-                    codes_b, offs_b = next(it)
-                except StopIteration:
-                    eof = True
+        with profiling.trace_region():
+            it = iter(batches)
+            while True:
+                while not eof and n_in - s < C + halo:
+                    try:
+                        codes_b, offs_b = next(it)
+                    except StopIteration:
+                        eof = True
+                        break
+                    cb = np.ascontiguousarray(codes_b).view(np.uint8)
+                    ob = np.asarray(offs_b, np.int64)
+                    if len(ob) == 0 or ob[-1] != len(cb):
+                        raise ValueError("scan_kmers_batches: batch offsets "
+                                         "must cover whole reads")
+                    offs = np.concatenate([offs, ob[1:] + n_in])
+                    buf = np.concatenate([buf, cb])
+                    n_in += len(cb)
+                if s >= n_in:
                     break
-                cb = np.ascontiguousarray(codes_b).view(np.uint8)
-                ob = np.asarray(offs_b, np.int64)
-                if len(ob) == 0 or ob[-1] != len(cb):
-                    raise ValueError("scan_kmers_batches: batch offsets must "
-                                     "cover whole reads")
-                offs = np.concatenate([offs, ob[1:] + n_in])
-                buf = np.concatenate([buf, cb])
-                n_in += len(cb)
-            if s >= n_in:
-                break
-            pending.append((s, dispatch(s)))
-            s += C
-            if len(pending) > self.max_inflight:
-                drain(pending.pop(0))
-                # trim consumed bytes; the oldest pending chunk's window
-                # stays resident for its host rescan
-                cut = (pending[0][0] if pending else s) - base
-                if cut > (64 << 20):
-                    buf = buf[cut:]
-                    base += cut
-                    j = max(int(np.searchsorted(offs, base,
-                                                side="right")) - 1, 0)
-                    offs = offs[j:]
-        for entry in pending:
-            drain(entry)
+                pending.append((s, dispatch(s)))
+                s += C
+                if len(pending) > self.max_inflight:
+                    drain(pending.pop(0))
+                    # trim consumed bytes; the oldest pending chunk's window
+                    # stays resident for its host rescan
+                    cut = (pending[0][0] if pending else s) - base
+                    if cut > (64 << 20):
+                        buf = buf[cut:]
+                        base += cut
+                        j = max(int(np.searchsorted(offs, base,
+                                                    side="right")) - 1, 0)
+                        offs = offs[j:]
+            for entry in pending:
+                drain(entry)
         return sink.result()
 
     # ---- meta chunks (scan_stream, modutils -P) ----
@@ -293,7 +365,7 @@ class ModimizerScanner:
         n = len(codes)
         codes = np.ascontiguousarray(codes).view(np.uint8)
         offsets = np.asarray(offsets, np.int64)
-        if n < self.host_threshold:
+        if self.host:
             self.used_device = False
             return self._scan_host(codes, offsets)
         self._require_device()

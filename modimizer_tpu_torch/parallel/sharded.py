@@ -29,12 +29,11 @@ import math
 import numpy as np
 import torch
 
-from modimizer_tpu.native import lib as native_lib
-from modimizer_tpu.ops.seqhash import BLK_COMPACT as BLK
-from modimizer_tpu.utils import profiling
-
 from .. import require_cuda
+from ..native import lib as native_lib
 from ..ops.scan_kernel import kernel_params, scan_compact
+from ..ops.consts import BLK_COMPACT as BLK
+from ..utils import profiling
 
 SENTINEL = -1               # u64 0xFFFF...FF: no k-mer
 POS_INF = -1                # u64 0xFFFF...FF: no position

@@ -3,7 +3,9 @@
 Ports of the JAX package's ``scripts/probe_*.py`` that time the k = 16 u32
 front and its ablations (``probe_pallas_parts``, ``probe_pallas_front``,
 ``probe_chain_time``, ``probe_front_mxu``), its micro-ops
-(``probe_front``) and the compaction primitives (``probe_mosaic_prims``).
+(``probe_front``) and the compaction primitives (``probe_mosaic_prims``),
+and the port's own ``probe_scan_compact`` (the scan step at the main path's
+shapes, beside an earlier version of its kernel).
 Each is a module with ``main(argv=None, device=None)``
 that takes the script's positional arguments and variant names, holds each
 kernel against its plain version on the same inputs, times both on the card
@@ -34,7 +36,7 @@ def random_sw(C: int, k: int, device, seed: int = DATA_SEED):
     default_rng(seed), packed 2 bits a base, big-endian per 64-bit word,
     into C/32 + 2 words (native ``pk_pack2``, not the JAX packer), as an
     int64 tensor on ``device``."""
-    from modimizer_tpu.native import lib as native_lib
+    from ..native import lib as native_lib
     n = C + k - 1
     codes = np.random.default_rng(seed).integers(0, 4, n).astype(np.uint8)
     sw = np.empty(C // 32 + 2, np.uint64)

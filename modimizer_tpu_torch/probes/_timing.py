@@ -24,6 +24,24 @@ import torch
 
 SLEEP_HZ = 2e9         # cycles a second, rounded up from the H100's clock
 MIN_SLEEP_S = 0.05
+# H100 SXM peaks (NVIDIA's data sheet, at the full 700 W power limit)
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12   # dense int8 tensor-core operations
+
+
+def nbytes(*tensors):
+    """Bytes of the tensors; an absent output (None) has none."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound_ms(n_bytes, int8_ops=0):
+    """(least ms the card could take, "bytes" or "operations"): the bytes
+    the work must move (each input read once, each output written once) at
+    the memory rate, or its int8 tensor-core operations at their peak,
+    whichever takes longer."""
+    b, o = n_bytes / HBM_BYTES_S * 1e3, int8_ops / INT8_OPS_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -59,27 +77,34 @@ def card_line():
 
 
 def same(got, want):
-    """Outputs (tuples of tensors) bit-identical."""
+    """Outputs (tuples of tensors, None for an absent one) bit-identical."""
     return len(got) == len(want) and all(
-        a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+        a is None and b is None
+        or a is not None and b is not None and a.shape == b.shape
+        and a.dtype == b.dtype and torch.equal(a, b)
         for a, b in zip(got, want))
 
 
 def report(line, fn, plain, *, device, work, unit="mpos_s", reps=20,
-           warmup=3, plain_reps=3, check=True):
+           warmup=3, plain_reps=3, check=True, reads=(), int8_ops=0):
     """Hold ``fn()`` against ``plain()`` (unless ``check`` is False: then
     ``fn`` is the plain version), time both on the card, print ``line``
     completed with the results, and return whether the check passed.
     ``work`` is the number of positions (or elements) per call, and
-    ``unit`` the key of its rate in millions per second."""
-    ok = same(fn(), plain()) if check else True
+    ``unit`` the key of its rate in millions per second.  The bound counts
+    the tensors in ``reads`` read once, ``fn()``'s outputs written once and
+    ``int8_ops`` tensor-core operations (``bound_ms``)."""
+    got = fn()
+    ok = same(got, plain()) if check else True
     line = dict(line, check=("match" if ok else "DIFF") if check
                 else "is the plain version")
     if device.type == "cuda":
         ms, host_ms = time_ms(fn, reps, warmup)
         plain_ms = time_ms(plain, plain_reps, 1)[0] if check else ms
+        b_ms, b_by = bound_ms(nbytes(*reads, *got), int8_ops)
         line.update({"ms": ms, unit: work / ms / 1e3, "plain_ms": plain_ms,
-                     "host_ms": host_ms},
+                     "host_ms": host_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_share": b_ms / ms},
                     device=torch.cuda.get_device_name(device),
                     card=card_line())
     else:

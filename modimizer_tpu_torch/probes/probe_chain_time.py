@@ -24,11 +24,10 @@ import sys
 
 import torch
 
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.ops.seqhash import scan_bo
-
+from ..core.seqhash import Seqhash
 from ..ops.front_kernel import front_planes, front_planes_ref
 from ..ops.scan_kernel import scan_compact, scan_compact_ref
+from ..ops.seqhash import scan_bo
 from . import SEED, front_inputs, resolve_device, variants
 from ._timing import report
 
@@ -66,7 +65,8 @@ def main(argv=None, device=None):
             ok &= report(dict(line, kernel="scan_compact"),
                          lambda: scan_compact(sw, vbits, **args),
                          lambda: scan_compact_ref(sw, vbits, **args),
-                         device=dev, work=C, reps=a.S2, warmup=a.S1)
+                         device=dev, work=C, reps=a.S2, warmup=a.S1,
+                         reads=(sw, vbits))
             continue
         args = dict(factor1=factor1, w=W, mj=a.mj,
                     variant="nohash" if v == "nohash" else "full")
@@ -79,7 +79,8 @@ def main(argv=None, device=None):
         ok &= report(dict(line, kernel="front_planes"),
                      lambda: front_planes(*streams, **args),
                      lambda: front_planes_ref(*streams, **args),
-                     device=dev, work=C, reps=a.S2, warmup=a.S1)
+                     device=dev, work=C, reps=a.S2, warmup=a.S1,
+                     reads=streams)
     return 0 if ok else 1
 
 

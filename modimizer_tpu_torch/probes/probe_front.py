@@ -50,7 +50,7 @@ def main(argv=None, device=None):
                       "kernel": "front_ops", "shape": list(x.shape)},
                      lambda: (front_ops(x, n),),
                      lambda: (front_ops_ref(x, n),), device=dev,
-                     work=x.numel(), unit="melem_s")
+                     work=x.numel(), unit="melem_s", reads=(x,))
     return 0 if ok else 1
 
 

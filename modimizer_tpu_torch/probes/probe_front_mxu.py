@@ -19,8 +19,7 @@ Usage: python -m modimizer_tpu_torch.probes.probe_front_mxu
 import argparse
 import sys
 
-from modimizer_tpu.core.seqhash import Seqhash
-
+from ..core.seqhash import Seqhash
 from ..ops.front_kernel import front_planes, front_planes_ref
 from ..ops.front_mma import front_mma, front_mma_ref
 from . import SEED, front_inputs, resolve_device, variants
@@ -52,9 +51,11 @@ def main(argv=None, device=None):
             args = dict(factor1=factor1, w=W, mj=a.MJ,
                         variant="nohash" if v == "nohash" else "full")
             fn, plain = front_planes, front_planes_ref
+        # front_mma: a [24, 8] int8 limb product a position
         ok &= report(dict(base, kernel=fn.__name__),
                      lambda: fn(*streams, **args),
-                     lambda: plain(*streams, **args), device=dev, work=C)
+                     lambda: plain(*streams, **args), device=dev, work=C,
+                     reads=streams, int8_ops=384 * C if v == "mxu" else 0)
     return 0 if ok else 1
 
 

@@ -27,9 +27,9 @@ import sys
 import torch
 
 from ..ops.front_kernel import M32, u32_as_i32
-from ..ops.mosaic_prims import (DOT_BLK, DOT_NC, cumsum128,
-                                cumsum128_ref, dot16, dot16_ref, roll12,
-                                roll12_ref, tala16, tala16_ref)
+from ..ops.mosaic_prims import (CS_W, DOT_BLK, DOT_BO, DOT_NC, TALA_OUT,
+                                cumsum128, cumsum128_ref, dot16, dot16_ref,
+                                roll12, roll12_ref, tala16, tala16_ref)
 from . import resolve_device
 from ._timing import report
 
@@ -54,6 +54,23 @@ def inputs(name, C, device):
             % 117).view(nb, DOT_BLK)
     return rank, torch.ones((nb, DOT_BLK, DOT_NC), dtype=torch.int8,
                             device=device)
+
+
+def reads(name, args):
+    """The inputs probe ``name``'s function reads: tala16 only the first 8
+    of idx's 16 rows."""
+    return (args[0], args[1][:TALA_OUT]) if name == "tala16" else args
+
+
+def int8_ops(name, args):
+    """int8 tensor-core operations of the kernels built on them: dot16's
+    one-hot [112 x 1024] by [1024 x 8] product a block, cumsum128's
+    [128 x 128] triangle a row."""
+    if name == "dot16":
+        return args[0].shape[0] * DOT_BO * DOT_BLK * DOT_NC * 2
+    if name == "cumsum128":
+        return args[0].shape[0] * CS_W * CS_W * 2
+    return 0
 
 
 FUNCS = {"tala16": (tala16, tala16_ref), "roll": (roll12, roll12_ref),
@@ -84,7 +101,8 @@ def main(argv=None, device=None):
                       "kernel": KERNEL[n], "C": C,
                       "shapes": [list(t.shape) for t in args]},
                      lambda: (fn(*args),), lambda: (plain(*args),),
-                     device=dev, work=C)
+                     device=dev, work=C, reads=reads(n, args),
+                     int8_ops=int8_ops(n, args))
     return 0 if ok else 1
 
 

@@ -17,8 +17,7 @@ Usage: python -m modimizer_tpu_torch.probes.probe_pallas_front [C_log2] [MJ]
 import argparse
 import sys
 
-from modimizer_tpu.core.seqhash import Seqhash
-
+from ..core.seqhash import Seqhash
 from ..ops.front_kernel import front_planes, front_planes_ref
 from . import SEED, front_inputs, resolve_device
 from ._timing import report
@@ -43,7 +42,7 @@ def main(argv=None, device=None):
         ok &= report(dict(base, variant=name, kernel="front_planes"),
                      lambda: front_planes(*streams, **args),
                      lambda: front_planes_ref(*streams, **args),
-                     device=dev, work=C)
+                     device=dev, work=C, reads=streams)
     args = dict(factor1=factor1, w=W, variant="full", mj=a.MJ)
     report(dict(base, variant="front32", kernel=None),
            lambda: front_planes_ref(*streams, **args), None, device=dev,

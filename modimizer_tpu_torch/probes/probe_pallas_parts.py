@@ -19,8 +19,7 @@ Usage: python -m modimizer_tpu_torch.probes.probe_pallas_parts
 import argparse
 import sys
 
-from modimizer_tpu.core.seqhash import Seqhash
-
+from ..core.seqhash import Seqhash
 from ..ops.front_kernel import front_planes, front_planes_ref
 from . import SEED, front_inputs, resolve_device, variants
 from ._timing import report
@@ -48,7 +47,8 @@ def main(argv=None, device=None):
                       "w": W},
                      lambda: front_planes(*streams, **args),
                      lambda: front_planes_ref(*streams, **args),
-                     device=dev, work=C)
+                     device=dev, work=C,
+                     reads=() if v == "noin" else streams)
     return 0 if ok else 1
 
 

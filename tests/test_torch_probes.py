@@ -16,7 +16,8 @@ import torch
 from modimizer_tpu_torch.probes import (probe_chain_time,
                                         probe_front, probe_front_mxu,
                                         probe_pallas_front,
-                                        probe_pallas_parts)
+                                        probe_pallas_parts,
+                                        probe_scan_compact)
 
 REPO = Path(__file__).resolve().parent.parent
 MJ = "256"
@@ -45,6 +46,29 @@ def test_probe_runs_on_cpu(capsys, mod, argv, want):
         assert x["check"] in ("match", "is the plain version")
         assert x["device"] == "cpu" and x["ms"] is None
         assert x["card"] is None
+
+
+@pytest.mark.parametrize("argv,shapes", [
+    (["--small"], ["scanner", "u64", "builder", "noemit"]),
+    (["--small", "u64"], ["u64"])])
+def test_probe_scan_compact_runs_on_cpu(capsys, argv, shapes):
+    assert probe_scan_compact.main(argv, device="cpu") == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["shape"] for x in lines] == shapes
+    for x in lines:
+        # a k-mers-only shape also checks the kernel storing its meta
+        want = ["current"] + ([] if x["with_meta"] else ["current_meta"])
+        assert x["check"] == dict.fromkeys(want, "match")
+        assert x["C"] == 1 << 15
+        assert x["with_meta"] == (x["shape"] == "builder")
+        assert x["device"] == "cpu" and x["ms"] is None
+
+
+@pytest.mark.parametrize("argv", [["bogus"], ["--baseline", "old.cu"]])
+def test_probe_scan_compact_bad_arguments_exit_nonzero(argv):
+    with pytest.raises(SystemExit) as e:
+        probe_scan_compact.main(argv + ["--small"], device="cpu")
+    assert e.value.code not in (0, None)
 
 
 @pytest.mark.parametrize("name", probe_chain_time.UNPORTED)

@@ -21,8 +21,9 @@ from modimizer_tpu.ops.packed import pack_bits, pack_sw  # noqa: E402
 from modimizer_tpu.ops.seqhash import BLK_COMPACT, scan_bo  # noqa: E402
 from modimizer_tpu.parallel.sharded import (_expand_valid,  # noqa: E402
                                             _scan_compact_core)
-from modimizer_tpu_torch.ops.scan_kernel import (kernel_params,  # noqa: E402
-                                                 scan_compact,
+from modimizer_tpu_torch.ops.packed import mod_is_zero  # noqa: E402
+from modimizer_tpu_torch.ops.scan_kernel import (_divisible,  # noqa: E402
+                                                 kernel_params, scan_compact,
                                                  scan_compact_ref)
 
 KW = [(16, 16), (11, 10), (13, 31), (19, 31), (24, 16), (31, 31)]
@@ -80,6 +81,76 @@ def test_ref_poly_a_overflows_like_jax():
     assert_same_as_jax(got, jax_core(sw, vb, **args), bo)
     assert bool(got[4]) and int(got[3]) == C
     assert bool((got[2] == BLK_COMPACT).all())
+
+
+@pytest.mark.parametrize("k,w", KW)
+def test_ref_kmers_only_drops_only_the_meta(k, w):
+    """with_meta=False (the scanner's modutils -a call) returns no meta and
+    the same k-mers, counts, total and overflow flag."""
+    C = 1 << 14
+    sh = Seqhash.create(k, w, 17)
+    rng = np.random.default_rng(k * 7 + w)
+    sw = t64(pack_sw(rng.integers(0, 4, C + k - 1).astype(np.uint8),
+                     C // 32 + 2))
+    vb = t64(pack_bits(rng.random(C) < 0.95, C // 64))
+    args = dict(k=k, w=w, factor1=sh.factor1, C=C, bo=scan_bo(w),
+                meta_isf=False)
+    full = scan_compact_ref(sw, vb, **args)
+    for fn in (scan_compact_ref, scan_compact):
+        got = fn(sw, vb, with_meta=False, **args)
+        assert got[1] is None
+        for i in (0, 2, 3, 4):
+            assert torch.equal(got[i], full[i]), i
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 10, 16, 31, (1 << 31) - 1, 1 << 32,
+                               (1 << 32) + 1, 1 << 62, (1 << 63) + 5,
+                               (1 << 64) - 1])
+def test_ref_emit_test_divides(w):
+    """The plain version's emit test (int64 %, canonical hashes below 2^62)
+    against the division-free mod_is_zero and Python's %."""
+    rng = np.random.default_rng(w % (1 << 32))
+    hs = np.concatenate([
+        rng.integers(0, 1 << 62, 256, dtype=np.int64),
+        np.array([0, 1, (1 << 32) - 1, (1 << 62) - 1], np.int64),
+        np.array([w * q for q in range(1, 5) if w * q < 1 << 62], np.int64),
+    ])
+    got = _divisible(torch.from_numpy(hs), w).numpy()
+    assert np.array_equal(got, [int(h) % w == 0 for h in hs])
+    assert np.array_equal(got, mod_is_zero(torch.from_numpy(hs), w).numpy())
+
+
+def _live_rows(out):
+    out_k, out_meta = out[0].numpy(), out[1].numpy()
+    live = out_meta != -1
+    return out_k[live].tolist(), out_meta[live].tolist()
+
+
+@pytest.mark.parametrize("blk", [128, 4096])
+@pytest.mark.parametrize("k,w", [(16, 16), (19, 31)])
+def test_ref_blk_partitions_the_same_stream(k, w, blk):
+    """Other compaction block sizes (the kernel takes blk up to 2^15):
+    with bo = blk nothing overflows, and the live rows in block order are
+    the stream-order rows of the JAX core at BLK_COMPACT; the per-block
+    counts sum to the coarser blocks' counts."""
+    C = 1 << 14
+    sh = Seqhash.create(k, w, 17)
+    rng = np.random.default_rng(blk + k)
+    sw = pack_sw(rng.integers(0, 4, C + k - 1).astype(np.uint8),
+                 C // 32 + 2)
+    vb = pack_bits(rng.random(C) < 0.9, C // 64)
+    args = dict(k=k, w=w, factor1=sh.factor1, C=C, meta_isf=True)
+    got = scan_compact_ref(t64(sw), t64(vb), bo=blk, blk=blk, **args)
+    want = jax_core(sw, vb, bo=BLK_COMPACT, **args)
+    assert not bool(got[4]) and int(got[3]) == int(want[2])
+    live = want[1] != 0xFFFFFFFF
+    assert _live_rows(got) == (want[0][live].view(np.int64).tolist(),
+                               want[1][live].view(np.int32).tolist())
+    fine, coarse = sorted([blk, BLK_COMPACT])
+    base = scan_compact_ref(t64(sw), t64(vb), bo=BLK_COMPACT, **args)[2]
+    cnts = {blk: got[2], BLK_COMPACT: base}
+    summed = cnts[fine].view(-1, coarse // fine).sum(1, dtype=torch.int32)
+    assert torch.equal(summed, cnts[coarse])
 
 
 def _ref_rows(codes, C, m, k, w, factor1):
@@ -201,3 +272,6 @@ def test_wrapper_rejects_bad_inputs():
         scan_compact(sw, vb, **dict(args, bo=BLK_COMPACT + 1))
     with pytest.raises(ValueError):
         scan_compact(sw, vb, **dict(args, factor1=1 << 64))
+    for blk in (64, 384, 1 << 16):      # a power of two in [128, 2^15]
+        with pytest.raises(ValueError):
+            scan_compact(sw, vb, **dict(args, blk=blk))

@@ -26,7 +26,7 @@ def _mk(rng, n_reads, lo, hi):
 
 
 def _port(sh, chunk=1 << 14):
-    return ModimizerScanner(sh, chunk=chunk, device=CPU, host_threshold=0)
+    return ModimizerScanner(sh, chunk=chunk, device=CPU, host=False)
 
 
 def _batches(codes, offsets, n_parts):
@@ -123,24 +123,36 @@ def test_scan_batch_matches_jax():
 
 
 def test_device_policy_without_cuda(monkeypatch):
+    """No hidden fallback: device=None without CUDA raises; the host scan
+    runs only when asked for (MODIMIZER_SCAN=host or host=True), whatever
+    the stream's length; device="cpu" runs the plain versions."""
     if torch.cuda.is_available():
         pytest.skip("checks the policy of a machine without CUDA")
     sh = Seqhash.create(16, 16, 17)
-    monkeypatch.delenv("MODIMIZER_SCAN", raising=False)
-    auto = ModimizerScanner(sh)
-    assert auto.device is None and auto.host_threshold >= 1 << 62
     codes, offsets = _mk(np.random.default_rng(2), 20, 50, 300)
     want = JaxScanner(sh, host_threshold=1 << 62).scan_kmers(codes, offsets)
-    assert np.array_equal(auto.scan_kmers(codes, offsets), want)
-    assert not auto.used_device
-    with pytest.raises(RuntimeError):
-        auto.scan_kmers_batches([(codes, offsets)])
-    with pytest.raises(RuntimeError):
-        ModimizerScanner(sh, host_threshold=0)
+    monkeypatch.delenv("MODIMIZER_SCAN", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModimizerScanner(sh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModimizerScanner(sh, host=False)
+    asked = ModimizerScanner(sh, host=True)
+    assert asked.device is None and asked.host
+    assert np.array_equal(asked.scan_kmers(codes, offsets), want)
+    assert not asked.used_device
+    with pytest.raises(RuntimeError, match="host scan alone"):
+        asked.scan_kmers_batches([(codes, offsets)])
     explicit = ModimizerScanner(sh, device="cpu")
-    assert explicit.host_threshold == 0
+    assert not explicit.host
+    assert np.array_equal(explicit.scan_kmers(codes, offsets), want)
+    assert explicit.used_device
+    monkeypatch.setenv("MODIMIZER_SCAN", "host")
+    host = ModimizerScanner(sh)
+    assert host.device is None and host.host
+    assert np.array_equal(host.scan_kmers(codes, offsets), want)
+    assert not host.used_device
+    assert ModimizerScanner(sh, device="cpu").host
+    assert not ModimizerScanner(sh, device="cpu", host=False).host
     monkeypatch.setenv("MODIMIZER_SCAN", "device")
     with pytest.raises(RuntimeError, match="CUDA"):
         ModimizerScanner(sh)
-    monkeypatch.setenv("MODIMIZER_SCAN", "host")
-    assert ModimizerScanner(sh, device="cpu").host_threshold >= 1 << 62
