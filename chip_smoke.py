@@ -179,7 +179,7 @@ def phase_kernels(small, report):
     rng = np.random.default_rng(SEED)
     sizes = [1 << 15] if small else [1 << 15, 1 << 25]
     errs = {"scan_compact": 0.0, "densify": 0.0}
-    n_cases = 0
+    n_cases = n_densify = 0
 
     def check_scan(sw, vb, kp, C, bo, meta_isf, tag, blk=BLK_COMPACT,
                    with_meta=True):
@@ -197,6 +197,7 @@ def phase_kernels(small, report):
         return got
 
     def check_densify(rows, bo, cap, tag):
+        nonlocal n_densify
         out_k, out_meta, cnt = rows[0], rows[1], rows[2]
         for meta in (None, out_meta)[:1 if out_meta is None else 2]:
             got = densify(out_k, meta, cnt, bo=bo, cap=cap)
@@ -207,8 +208,10 @@ def phase_kernels(small, report):
                 pairs.append((got[1], want[1]))
             e = max_abs_err(pairs)
             errs["densify"] = max(errs["densify"], e)
+            n_densify += 1
             if e:
-                fail("densify != densify_ref at %s" % tag)
+                fail("densify != densify_ref at %s meta=%s"
+                     % (tag, meta is not None))
 
     # (k, w, blk) cases: the six pairs, the emit test's edges, and k16 w16 /
     # k19 w31 in compaction blocks of 128 and 4096 positions
@@ -232,15 +235,34 @@ def phase_kernels(small, report):
     # poly-A: k-mer 0 hashes to 0, every position emits, every block
     # overflows bo
     C = sizes[-1]
-    kp = kernel_params(Seqhash.create(16, 16, SEED))
+    sh = Seqhash.create(16, 16, SEED)
+    kp = kernel_params(sh)
     sw, vb = random_chunk(rng, C, 16, poly_a=True)
     bo = scan_bo(16)
     rows = check_scan(sw, vb, kp, C, bo, False, "poly-A")
     if not bool(rows[4]) or int((rows[2] > bo).sum()) != rows[2].numel():
         fail("poly-A chunk did not overflow every block")
     check_densify(rows, bo, C // 4, "poly-A")
-    say({"phase": "kernels", "cases": n_cases, "sizes": sizes,
-         "kwb": cases, "max_abs_err": errs})
+    # densify's edges at the largest size, k16 w16 with (p << 1) | isF: a
+    # chunk with no live row, a cap below the live rows, and the scanner's
+    # wide retry (bo x 4, cap x 4); blk 128 at 2^25 (262,144 blocks, 1,024
+    # tiles) is among the cases above
+    scanner = ModimizerScanner(sh, chunk=C, device="cuda")
+    sw, vb = random_chunk(rng, C, 16)
+    rows = check_scan(sw, torch.zeros_like(vb), kp, C, bo, True, "empty")
+    if int(rows[2].sum()):
+        fail("a chunk with no valid position emitted")
+    check_densify(rows, bo, scanner.cap, "empty chunk")
+    rows = check_scan(sw, vb, kp, C, bo, True, "cap cut")
+    live = int(rows[2].clamp(max=bo).sum())
+    check_densify(rows, bo, live // 2 + 1, "cap cut at %d of %d rows"
+                  % (live // 2 + 1, live))
+    wide_bo, wide_cap = scanner._wide()
+    rows = check_scan(sw, vb, kp, C, wide_bo, True, "wide retry")
+    check_densify(rows, wide_bo, wide_cap, "wide retry bo=%d cap=%d"
+                  % (wide_bo, wide_cap))
+    say({"phase": "kernels", "cases": n_cases, "densify_cases": n_densify,
+         "sizes": sizes, "kwb": cases, "max_abs_err": errs})
     time_scan_kernels(small, report, errs)
     check_front_kernels(small, rng, report)
     check_mosaic_kernels(small, rng, report)
@@ -250,13 +272,14 @@ def time_scan_kernels(small, report, errs):
     """scan_compact at probe_scan_compact's shapes (the scanner's chunk of
     2^25 at k16 w16 and at k19 w31, the builder's 2^22 at k16 w16, and a w
     that never emits; 2^15 with --small), each beside its plain version and
-    its bound; densify at the scanner's shape."""
+    its bound; densify at probe_densify's shapes (the scanner's rows at k16
+    w16 and k19 w31, k-mers only, and the meta form), each beside its plain
+    version, its bound and torch.masked_select of the live rows."""
     import torch
     from modimizer_tpu_torch.ops.device_scan import densify, densify_ref
     from modimizer_tpu_torch.ops.scan_kernel import (scan_compact,
                                                      scan_compact_ref)
-    from modimizer_tpu_torch.ops.seqhash import ModimizerScanner
-    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.probes import probe_densify as pd
     from modimizer_tpu_torch.probes import probe_scan_compact as psc
     from modimizer_tpu_torch.probes._timing import bound_ms
     from modimizer_tpu_torch.probes._timing import time_ms as device_ms
@@ -274,18 +297,21 @@ def time_scan_kernels(small, report, errs):
                         "with_meta": args["with_meta"], "ms": ms,
                         "plain_ms": plain, "bound_ms": b_ms,
                         "bound_by": b_by, "bound_share": b_ms / ms}
-        if name == "scanner":
-            rows = scan_compact(sw, vb, **args)
-            bo = args["bo"]
-            cap = ModimizerScanner(Seqhash.create(k, w, SEED), chunk=C,
-                                   device=dev).cap
-            live = int(rows[2].clamp(max=bo).sum())
-            d_ms = device_ms(lambda: densify(rows[0], None, rows[2], bo=bo,
-                                             cap=cap), 20)[0]
-            d_plain = device_ms(lambda: densify_ref(rows[0], None, rows[2],
-                                                    bo=bo, cap=cap), 3, 1)[0]
-            # cnt in, the live rows in, cap rows out
-            d_bound = bound_ms(rows[2].numel() * 4 + live * 8 + cap * 8)
+    d_shapes = {}
+    for name, (logc, k, w, with_meta) in pd.SHAPES.items():
+        C = 1 << (15 if small else logc)
+        out_k, out_meta, cnt, bo, cap = pd.shape_rows(name, C, dev)
+        d_ms = device_ms(lambda: densify(out_k, out_meta, cnt, bo=bo,
+                                         cap=cap), 20)[0]
+        d_plain = device_ms(lambda: densify_ref(out_k, out_meta, cnt, bo=bo,
+                                                cap=cap), 3, 1)[0]
+        d_near = device_ms(pd.nearest_call(out_k, out_meta, cnt, bo), 20)[0]
+        b_ms, b_by = bound_ms(pd.densify_bytes(cnt, bo, cap, with_meta))
+        d_shapes[name] = {"C": C, "k": k, "w": w, "bo": bo, "cap": cap,
+                          "with_meta": with_meta, "ms": d_ms,
+                          "plain_ms": d_plain, "nearest_ms": d_near,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "bound_share": b_ms / d_ms}
     main = shapes["scanner"]
     report["scan_compact"].update(
         max_abs_err=errs["scan_compact"], ms=main["ms"],
@@ -294,24 +320,27 @@ def time_scan_kernels(small, report, errs):
         library_ms=None, library="none: no PyTorch call hashes, tests and "
         "compacts k-mers", timed="scanner: C=2^%d k16 w16 kmers only"
         % (main["C"].bit_length() - 1), shapes=shapes)
+    d = d_shapes["scanner"]
     report["densify"].update(
-        max_abs_err=errs["densify"], ms=d_ms, plain_ms=d_plain,
-        bound_ms=d_bound[0], bound_by=d_bound[1],
-        bound_share=d_bound[0] / d_ms, library_ms=None,
-        library="none: the dense prefix of per-block rows is a mask, a "
-        "select and a pad", timed="scanner's rows at C=2^%d k16 w16"
-        % (main["C"].bit_length() - 1))
+        max_abs_err=errs["densify"], ms=d["ms"], plain_ms=d["plain_ms"],
+        bound_ms=d["bound_ms"], bound_by=d["bound_by"],
+        bound_share=d["bound_share"], library_ms=None,
+        library="none: no single PyTorch call computes densify",
+        nearest_call="torch.masked_select of the live rows, mask built "
+        "beforehand: omits the cap cut and the sentinel pad",
+        nearest_ms=d["nearest_ms"], timed="scanner's rows at C=2^%d k16 "
+        "w16, kmers only" % (d["C"].bit_length() - 1), shapes=d_shapes)
     say({"phase": "kernel_times", "scan_compact": shapes,
-         "densify": {"ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound[0]},
-         "card": nvidia_smi_line()})
+         "densify": d_shapes, "card": nvidia_smi_line()})
 
 
 def check_front_kernels(small, rng, report):
     """The probe kernels against their plain versions on the card, bit for
     bit: every front_planes variant and front_mma at C = 2^15 and 2^24 for
-    each w in FRONT_W, every front_ops op on C elements after 1 and 16
-    passes; then each timed
-    beside its plain version at the probes' default shapes."""
+    each w in FRONT_W, every front_ops op on C elements after each number
+    of passes, 1 to 16 (one kernel instance each); then each timed beside
+    its plain version at the probes' default shapes, the front_ops copy in
+    turns with x.clone()."""
     import numpy as np
     import torch
     from modimizer_tpu_torch.core.seqhash import Seqhash
@@ -353,7 +382,7 @@ def check_front_kernels(small, rng, report):
                              .astype(np.uint32).view(np.int32)).cuda()
         x = x.view(max(1, C >> 17), 128, -1)
         for op in OPS:
-            for r in (0, R_LAST):
+            for r in range(R_LAST + 1):
                 check("front_ops", (front_ops(x, op, r),),
                       (front_ops_ref(x, op, r),),
                       "%s %s r=%d" % (tuple(x.shape), op, r))
@@ -362,9 +391,9 @@ def check_front_kernels(small, rng, report):
          "max_abs_err": errs})
 
     # times at the probes' default shapes: C = 2^24 (k16 w16, "full"), and
-    # u32 [8, 128, 1024] for the micro-ops (copy, the op one PyTorch call
-    # computes, and "dyn": the funnel's variable shift; 16 passes as the
-    # script's grid)
+    # u32 [8, 128, 1024] for the micro-ops (each op, 16 passes as the
+    # script's grid; the copy, which one PyTorch call computes, in turns
+    # with x.clone(): clone, copy, copy, clone)
     C = sizes[-1]
     f1 = Seqhash.create(16, 16, SEED).factor1
     st = make_streams(random_chunk(rng, C, 16)[0], C // 16)
@@ -374,15 +403,21 @@ def check_front_kernels(small, rng, report):
     x = x.view(8, 128, 1024)
     # device time with the launches queued ahead (the wrappers' host time
     # exceeds these kernels' at the probes' sizes)
+    turns = {"clone": [], "copy": []}
+    for who in ("clone", "copy", "copy", "clone"):
+        fn = ((lambda: x.clone()) if who == "clone"
+              else (lambda: front_ops(x, "copy")))
+        turns[who].append(device_ms(fn, 20)[0])
+    ops_ms = {op: device_ms(lambda: front_ops(x, op), 20)[0]
+              for op in OPS if op != "copy"}
     t = {"front_planes": (
             device_ms(lambda: front_planes(*st, **full), 20)[0],
             device_ms(lambda: front_planes_ref(*st, **full), 3, 1)[0]),
          "front_mma": (
             device_ms(lambda: front_mma(*st, factor1=f1, w=16), 20)[0],
             device_ms(lambda: front_mma_ref(*st, factor1=f1, w=16), 3, 1)[0]),
-         "front_ops": (device_ms(lambda: front_ops(x, "copy"), 20)[0],
+         "front_ops": (min(turns["copy"]),
                        device_ms(lambda: front_ops_ref(x, "copy"), 3, 1)[0])}
-    dyn_ms = device_ms(lambda: front_ops(x, "dyn"), 20)[0]
     # the planes in, km (int32) and em (int8) out; front_mma's [24, 8] limb
     # product is 384 int8 operations a position
     io = nbytes(*st, *front_planes(*st, **full))
@@ -393,8 +428,8 @@ def check_front_kernels(small, rng, report):
                                 "k-mers"),
                "front_mma": (None, "none: no PyTorch call hashes k-mers "
                              "(PyTorch has no integer matmul on CUDA)"),
-               "front_ops": (device_ms(lambda: x.clone(), 20)[0],
-                             "x.clone()")}
+               "front_ops": (min(turns["clone"]),
+                             "x.clone(), in turns with the copy")}
     timed = {"front_planes": "C=2^%d k16 w16 full" % (C.bit_length() - 1),
              "front_mma": "C=2^%d k16 w16" % (C.bit_length() - 1),
              "front_ops": "copy r=0..15 on u32 [8, 128, 1024]"}
@@ -405,9 +440,10 @@ def check_front_kernels(small, rng, report):
                             bound_share=bounds[name][0] / ms,
                             library_ms=library[name][0],
                             library=library[name][1], timed=timed[name])
-    report["front_ops"]["dyn_ms"] = dyn_ms
+    report["front_ops"].update(ops_ms=ops_ms, turns_ms=turns)
     say({"phase": "front_kernel_times", "timed": timed,
-         "ms": {n: v[0] for n, v in t.items()}, "dyn_ms": dyn_ms,
+         "ms": {n: v[0] for n, v in t.items()}, "front_ops_ms": ops_ms,
+         "copy_clone_turns_ms": turns,
          "plain_ms": {n: v[1] for n, v in t.items()},
          "card": nvidia_smi_line()})
 
@@ -763,7 +799,9 @@ def device_busy(prof):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = {}
     for k in set(PATH_KERNELS["scanner"]):
-        rows = [v for name, v in by_name.items() if k + "_kernel" in name]
+        # densify is two kernels (densify_tiles_kernel, densify_rows_kernel)
+        pat = re.compile(r"\b%s\w*_kernel\b" % k)
+        rows = [v for name, v in by_name.items() if pat.search(name)]
         ours[k] = [sum(t for t, _ in rows) / 1e3, sum(n for _, n in rows)]
     return (busy / 1e3, [[name[:60], t / 1e3, n] for name, (t, n) in top],
             ours)

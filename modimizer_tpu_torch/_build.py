@@ -96,6 +96,22 @@ def build() -> Path:
     return so
 
 
+def build_aside(src) -> ctypes.CDLL:
+    """Compile one source as it stands (nvcc with the port's flags) into a
+    library of its own in ``src``'s directory, ``_build/``, and load it: an
+    earlier version of a kernel that a probe times beside the current one."""
+    src = Path(src).resolve()
+    out = src.parent / "_build" / (src.stem + ".so")
+    out.parent.mkdir(exist_ok=True)
+    r = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-shared", "-o", str(out),
+                                                 str(src)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError("nvcc %s failed (rc %d):\n%s%s"
+                           % (src, r.returncode, r.stdout, r.stderr))
+    return ctypes.CDLL(str(out))
+
+
 def lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
@@ -122,7 +138,7 @@ def _declare(L):
         p]                     # stream
     L.mz_densify.restype = ctypes.c_int
     L.mz_densify.argtypes = [
-        p, p, p, p,            # src_k, src_meta (nullable), cnt, base
+        p, p, p, p,            # src_k, src_meta (nullable), cnt, agg
         i64, i32, i64,         # nb, bo, cap
         p, p,                  # dst_k, dst_meta (nullable)
         p]                     # stream

@@ -15,6 +15,8 @@ import torch
 from .. import _build
 from .scan_kernel import scan_compact
 
+DENSIFY_TILE = 256     # compaction blocks a tile of csrc/densify.cu
+
 
 def _check_rows(out_k, out_meta, cnt, bo):
     nb = cnt.shape[0]
@@ -61,7 +63,9 @@ def densify_ref(out_k, out_meta, cnt, *, bo, cap):
 def densify(out_k, out_meta, cnt, *, bo, cap):
     """Dense stream-order prefix of the block rows: launches
     csrc/densify.cu for CUDA tensors, runs densify_ref for CPU tensors.
-    out_meta may be None (kmers only)."""
+    out_meta may be None (kmers only).  On the card the call is two kernel
+    launches and nothing else: the outputs and the per-tile scratch are
+    ``torch.empty``, and the kernels write every slot."""
     if out_k.device.type == "cpu":
         return densify_ref(out_k, out_meta, cnt, bo=bo, cap=cap)
     if out_k.device.type != "cuda":
@@ -70,15 +74,15 @@ def densify(out_k, out_meta, cnt, *, bo, cap):
     L = _build.lib()
     dev = out_k.device
     nb = cnt.shape[0]
-    _live, base = _block_bases(cnt, bo)
-    dk = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+    dk = torch.empty(cap, dtype=torch.int64, device=dev)
     dm = (None if out_meta is None
-          else torch.full((cap,), -1, dtype=torch.int32, device=dev))
+          else torch.empty(cap, dtype=torch.int32, device=dev))
+    agg = torch.empty(-(-nb // DENSIFY_TILE), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = L.mz_densify(
             out_k.data_ptr(), None if dm is None else out_meta.data_ptr(),
-            cnt.data_ptr(), base.data_ptr(), nb, bo, cap, dk.data_ptr(),
+            cnt.data_ptr(), agg.data_ptr(), nb, bo, cap, dk.data_ptr(),
             None if dm is None else dm.data_ptr(), stream)
     _build.check(rc, "densify")
     _build.LAUNCHES["densify"] += 1

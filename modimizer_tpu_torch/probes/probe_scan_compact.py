@@ -36,9 +36,7 @@ meta stores.  A disagreement exits non-zero.
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -85,16 +83,7 @@ def scan_compact_bytes(sw, vbits, C, bo, with_meta, blk=BLK_COMPACT):
 def load_baseline(src):
     """Build ``src`` into its own library and declare the earlier
     interface of ``mz_scan_compact``."""
-    src = Path(src).resolve()
-    out = src.parent / "_build" / (src.stem + ".so")
-    out.parent.mkdir(exist_ok=True)
-    r = subprocess.run([_build._nvcc()] + _build.NVCC_FLAGS
-                       + ["-shared", "-o", str(out), str(src)],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise SystemExit("probe_scan_compact: nvcc %s failed (rc %d):\n%s%s"
-                         % (src, r.returncode, r.stdout, r.stderr))
-    L = ctypes.CDLL(str(out))
+    L = _build.build_aside(src)
     p, i32 = ctypes.c_void_p, ctypes.c_int
     L.mz_scan_compact.restype = i32
     L.mz_scan_compact.argtypes = [p, p, ctypes.c_int64, i32,

@@ -61,6 +61,17 @@ def test_dyn_ref_equal_dynf_at_every_r(probe, r):
     assert np.array_equal(got[0], want)
 
 
+@pytest.mark.parametrize("r", range(R_LAST + 1))
+@pytest.mark.parametrize("op", [op for op in OPS if op != "dyn"])
+def test_ref_equal_probe_body_at_every_r(probe, op, r):
+    """Every other body at each pass of the grid, on the script's first
+    tile: the kernel builds one instance per last pass (r = 0 .. 15)."""
+    x = probe.w0h[0]
+    got = front_ops_ref(as_torch(x[None]), op, r).numpy().view(np.uint32)
+    want = np.asarray(probe.PROBES[op](jnp.asarray(x), jnp.int32(r)))
+    assert np.array_equal(got[0], want), (op, r)
+
+
 def test_dyn_is_a_rotate_by_30():
     rng = np.random.default_rng(1)
     x = rng.integers(0, 2 ** 32, (2, 8, 64), dtype=np.uint64).astype(

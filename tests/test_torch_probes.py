@@ -13,7 +13,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from modimizer_tpu_torch.probes import (probe_chain_time,
+from modimizer_tpu_torch.probes import (probe_chain_time, probe_densify,
                                         probe_front, probe_front_mxu,
                                         probe_pallas_front,
                                         probe_pallas_parts,
@@ -71,6 +71,27 @@ def test_probe_scan_compact_bad_arguments_exit_nonzero(argv):
     assert e.value.code not in (0, None)
 
 
+@pytest.mark.parametrize("argv,shapes", [
+    (["--small"], ["scanner", "u64", "meta"]),
+    (["--small", "meta"], ["meta"])])
+def test_probe_densify_runs_on_cpu(capsys, argv, shapes):
+    assert probe_densify.main(argv, device="cpu") == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["shape"] for x in lines] == shapes
+    for x in lines:
+        assert x["check"] == {"current": "match"}
+        assert x["C"] == 1 << 15 and 0 < x["live_rows"] <= x["cap"]
+        assert x["with_meta"] == (x["shape"] == "meta")
+        assert x["device"] == "cpu" and x["ms"] is None
+
+
+@pytest.mark.parametrize("argv", [["bogus"], ["--baseline", "old.cu"]])
+def test_probe_densify_bad_arguments_exit_nonzero(argv):
+    with pytest.raises(SystemExit) as e:
+        probe_densify.main(argv + ["--small"], device="cpu")
+    assert e.value.code not in (0, None)
+
+
 @pytest.mark.parametrize("name", probe_chain_time.UNPORTED)
 def test_tpu_only_backend_exits_nonzero(name):
     with pytest.raises(SystemExit) as e:
@@ -107,8 +128,9 @@ try:
 except SystemExit as e:
     assert e.code == 0, e.code
 assert "jax" not in sys.modules, "jax was imported"
-from modimizer_tpu_torch.probes import (probe_chain_time, probe_front,
-                                        probe_front_mxu, probe_pallas_front)
+from modimizer_tpu_torch.probes import (probe_chain_time, probe_densify,
+                                        probe_front, probe_front_mxu,
+                                        probe_pallas_front)
 assert probe_chain_time.main(["12", "1", "1", "--mj", "128"],
                              device="cpu") == 0
 assert "jax" not in sys.modules, "jax was imported"
