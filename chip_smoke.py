@@ -4,12 +4,15 @@ this checkout, holds each against its plain PyTorch version, drives the
 port's ``modutils -a`` at full size through both of its device paths (the
 device count of the builder, and the streaming scanner) and checks each .mod
 against the native host path byte for byte, profiles both paths (stage
-timers, the card's busy time and idle share), then runs the scan-front and
+timers, the card's busy time and idle share), runs ``modmap``, ``modasm``
+and ``modrep`` on the card at BASELINE configs 3 and 5 and an rDNA read set
+against the port's host path, then runs the scan-front and
 compaction-primitive probes on the card.
 
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --phases env,build,kernels --small
     python3 chip_smoke.py --phases env,build,kernels,probes
+    python3 chip_smoke.py --phases env,build,apps
 
 Prints one JSON line per phase, then a ``{"kernels": [...]}`` line (each
 kernel with its launches on the main path, its error against its plain
@@ -35,7 +38,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "main", "overflow", "profile",
+PHASES = ("env", "build", "kernels", "main", "overflow", "profile", "apps",
           "probes")
 KW_PAIRS = [(16, 16), (11, 10), (13, 31), (19, 31), (24, 16), (31, 31)]
 # the emit test's edges on both k-mer widths: w = 1 (every position emits)
@@ -49,7 +52,10 @@ SEED = 17
 # what modutils -a launches on each path: the builder's device count (inputs
 # of 2^25 bases or more), and the streaming scanner
 PATH_KERNELS = {"builder": ("scan_compact",),
-                "scanner": ("scan_compact", "densify")}
+                "scanner": ("scan_compact", "densify"),
+                "modmap": ("scan_compact", "densify", "find_sorted"),
+                "modasm": ("scan_compact", "densify", "overlap_pairs"),
+                "modrep": ("scan_compact", "densify")}
 PROBE_KERNELS = ("front_planes", "front_mma", "front_ops", "tala16", "dot16",
                  "roll12", "cumsum128")
 FRONT_KERNELS, MOSAIC_KERNELS = PROBE_KERNELS[:3], PROBE_KERNELS[3:]
@@ -266,6 +272,8 @@ def phase_kernels(small, report):
     time_scan_kernels(small, report, errs)
     check_front_kernels(small, rng, report)
     check_mosaic_kernels(small, rng, report)
+    check_lookup_kernel(small, rng, report)
+    check_overlap_kernel(small, rng, report)
 
 
 def time_scan_kernels(small, report, errs):
@@ -540,6 +548,238 @@ def mosaic_library_call(name, args):
                 "out.index_add_(0, slot, cols), slots and int32 cols "
                 "prepared beforehand")
     return None, "none: twelve roll-and-add stages are twelve calls"
+
+
+# BASELINE config 3 (modmap): one reference of GRCh38 chr20's length, 3,000
+# query reads of 10 kbp sampled from it; config 5 (modasm): E. coli K-12
+# MG1655's length at 30x in 15 kbp reads; modrep: the human rDNA unit's
+# length (GenBank KY962518), 200 reads of two units.  All uniform ACGT from
+# numpy seeds.
+CONFIG3 = {"ref_len": 64_444_167, "n_reads": 3_000, "read_len": 10_000,
+           "sub": 0.01, "rc_every": 3, "k": 24, "w": 31}
+CONFIG5 = {"genome_len": 4_641_652, "n_reads": 9_283, "read_len": 15_000,
+           "sub": 0.001, "rc_every": 2, "k": 19, "w": 31}
+RDNA = {"unit_len": 44_838, "n_reads": 200, "units": 2, "sub": 0.01,
+        "rc_every": 3, "junk_len": 3_000}
+# --small: config 5's 100 reads (1.5 Mbp) are above the 2^20 bases at which
+# main_sizes sends modutils -a to the builder
+SMALL = {"ref_len": 400_000, "genome_len": 200_000, "n_reads": 100,
+         "unit_len": 4_000}
+
+
+def lookup_inputs(rng, n, nq, dev):
+    """A config-3-like table (n unique random 48-bit k-mers, ascending, ids
+    1..n in random order) and nq queries: half present, half random, and
+    one all-ones (-1)."""
+    import numpy as np
+    import torch
+    keys = np.unique(rng.integers(0, 1 << 48, n, dtype=np.int64))
+    vals = (rng.permutation(len(keys)) + 1).astype(np.int32)
+    present = rng.choice(keys, nq // 2) if len(keys) else keys[:0]
+    q = np.concatenate([present, rng.integers(0, 1 << 48, nq - len(present))])
+    if nq:
+        q[-1] = -1
+    rng.shuffle(q)
+    return tuple(torch.from_numpy(a).to(dev) for a in (keys, vals, q))
+
+
+def check_lookup_kernel(small, rng, report):
+    """find_sorted against its plain version on the card, bit for bit: a
+    small table, the config-3 shape (the reference's emits ~ 64.4 M / 31
+    keys, the queries' ~ 30 M / 31), an empty query (no launch), an empty
+    table and the all-ones query; then timed at the config-3 shape beside
+    its plain version and, in turns, the library route."""
+    import torch
+    from modimizer_tpu_torch import _build
+    from modimizer_tpu_torch.parallel.lookup import (find_sorted,
+                                                     find_sorted_ref)
+    from modimizer_tpu_torch.probes._timing import bound_ms
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    dev = torch.device("cuda")
+    full = (CONFIG3["ref_len"] // CONFIG3["w"],
+            CONFIG3["n_reads"] * CONFIG3["read_len"] // CONFIG3["w"])
+    shapes = [(5_000, 3_000)] + ([] if small else [full])
+    err, cases = 0.0, []
+    for n, nq in shapes + [(5_000, 0), (0, 3_000)]:
+        keys, vals, q = lookup_inputs(rng, n, nq, dev)
+        before = _build.LAUNCHES["find_sorted"]
+        got = find_sorted(keys, vals, q)
+        want = find_sorted_ref(keys, vals, q)
+        torch.cuda.synchronize()
+        e = max_abs_err([(got, want)])
+        err = max(err, e)
+        launched = _build.LAUNCHES["find_sorted"] - before
+        cases.append({"n": keys.numel(), "nq": q.numel(), "launched":
+                      launched, "hits": int((got != 0).sum())})
+        if e or launched != (1 if nq else 0) or int(got[q == -1].sum()):
+            fail("find_sorted != find_sorted_ref at n=%d nq=%d" % (n, nq))
+    n, nq = shapes[-1]
+    keys, vals, q = lookup_inputs(rng, n, nq, dev)
+
+    def library():
+        pos = torch.searchsorted(keys, q).clamp_(max=keys.numel() - 1)
+        return torch.where(keys[pos] == q, vals[pos], 0)
+
+    turns = {"library": [], "kernel": []}
+    for who in ("library", "kernel", "kernel", "library"):
+        turns[who].append(device_ms(
+            library if who == "library"
+            else (lambda: find_sorted(keys, vals, q)), 20)[0])
+    ms = min(turns["kernel"])
+    plain = device_ms(lambda: find_sorted_ref(keys, vals, q), 3, 1)[0]
+    # the same queries in ascending order: a warp's lanes walk one path,
+    # so the search's loads are shared; what remains is the step chain
+    qs = torch.sort(q).values
+    sorted_ms = device_ms(lambda: find_sorted(keys, vals, qs), 20)[0]
+    hits = int((find_sorted(keys, vals, q) != 0).sum())
+    # keys and queries read once, the output written once, and the ids of
+    # this run's hits
+    b_ms, b_by = bound_ms(keys.numel() * 8 + q.numel() * 12 + hits * 4)
+    report["find_sorted"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, bound_share=b_ms / ms,
+        library_ms=min(turns["library"]),
+        library="torch.searchsorted + clamp + gather + compare + "
+        "torch.where, in turns with the kernel", sorted_queries_ms=sorted_ms,
+        timed="n=%d keys, nq=%d queries (%d hits)" % (n, nq, hits))
+    say({"phase": "lookup_kernel", "cases": cases, "max_abs_err": err,
+         "n": n, "nq": nq, "turns_ms": turns, "plain_ms": plain,
+         "sorted_queries_ms": sorted_ms, "bound_ms": b_ms,
+         "card": nvidia_smi_line()})
+
+
+class FakeReadset:
+    """What overlap_counts reads of a readset: hits (mod | strand << 31),
+    hit_off, and the modset's info and depth."""
+
+    def __init__(self, reads, info, strand):
+        import numpy as np
+        from types import SimpleNamespace
+        h = np.concatenate(reads).astype(np.uint32) if reads else \
+            np.zeros(0, np.uint32)
+        self.hits = h | (strand.astype(np.uint32) << np.uint32(31))
+        self.hit_off = np.concatenate(
+            [[0, 0], np.cumsum([len(r) for r in reads])]).astype(np.int64)
+        depth = np.bincount(h, minlength=len(info)).astype(np.uint16)
+        self.ms = SimpleNamespace(info=info, depth=depth)
+
+
+def overlap_readset(rng, case, n_reads=60, mods_per_read=40, n_mods=300):
+    """Hit rows for the overlap kernel: reads that tile a genome of mods
+    (read 0 burned, every other read reversed, 95 % of the mods copy 1,
+    0.2 % of the hits repeating the one before: the n_repeat path), or one
+    edge: no copy-1 row, groups of one row, a group of more than 64 rows,
+    every row of a group on one read."""
+    import numpy as np
+    info = (1 + 2 * (rng.random(n_mods + 1) >= 0.95)).astype(np.uint8)
+    if case == "no_copy1":
+        info[:] = 2
+    if case == "singletons":
+        reads = [np.arange(1, n_mods + 1)[r::n_reads]
+                 for r in range(n_reads)]
+    elif case == "big_group":
+        reads = [np.array([5, rng.integers(6, n_mods + 1), 5 if r % 7 else 6])
+                 for r in range(100)]
+    elif case == "one_read":
+        reads = [np.array([3, 9, 3, 3, 12, 3, 3]), np.array([9, 12, 3]),
+                 np.array([3])]
+    else:
+        starts = rng.integers(1, n_mods - mods_per_read, n_reads)
+        reads = []
+        for r, s in enumerate(starts):
+            m = np.arange(s, s + mods_per_read)
+            dup = np.nonzero(rng.random(len(m)) < 0.002)[0]
+            m[dup[dup > 0]] = m[dup[dup > 0] - 1]
+            reads.append(m[::-1] if r % 2 else m)
+    mod_bit = rng.integers(0, 2, n_mods + 1)
+    strand = np.concatenate([mod_bit[r] ^ (i % 2) for i, r in
+                             enumerate(reads)]) if reads else np.zeros(0)
+    return FakeReadset(reads, info, strand)
+
+
+def overlap_rows_on(rs, dev):
+    import numpy as np
+    import torch
+    from modimizer_tpu_torch.parallel.overlaps import overlap_inputs
+    return [torch.from_numpy(np.ascontiguousarray(a).view(
+        np.int32 if a.dtype == np.uint32 else np.uint8)).to(dev)
+        for a in overlap_inputs(rs)[0]]
+
+
+def check_overlap_kernel(small, rng, report):
+    """overlap_pairs against its plain version on the card, bit for bit:
+    the pair rows (pair_rows vs pair_rows_ref) and the reduced pairs
+    (overlap_pairs vs overlap_pairs_ref), on a small read set, the config-5
+    shape (9,283 reads of 15 kbp / 31 = 484 mods over the genome's
+    4,641,652 / 31 mods: ~4.5 M hit rows, ~30 rows a group) and the edges;
+    then timed at the config-5 shape: the kernel's two launches, the whole
+    pair_rows call, its plain version, the step-1 sort and the step-4
+    reduce."""
+    import torch
+    from modimizer_tpu_torch import _build
+    from modimizer_tpu_torch.parallel.overlaps import (
+        count_launch, emit_launch, overlap_pairs, overlap_pairs_ref,
+        pair_rows, pair_rows_ref, reduce_pairs, sort_rows)
+    from modimizer_tpu_torch.probes._timing import bound_ms, nbytes
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    dev = torch.device("cuda")
+    full = {"n_reads": CONFIG5["n_reads"],
+            "mods_per_read": CONFIG5["read_len"] // CONFIG5["w"],
+            "n_mods": CONFIG5["genome_len"] // CONFIG5["w"]}
+    cases = [("tiled", {})] + ([] if small else [("config5", full)]) + [
+        (e, {}) for e in ("no_copy1", "singletons", "big_group", "one_read")]
+    err, lines = 0.0, []
+    for case, kw in cases:
+        rows = overlap_rows_on(overlap_readset(rng, case, **kw), dev)
+        srt = sort_rows(*rows)
+        before = _build.LAUNCHES["overlap_pairs"]
+        got, want = pair_rows(*srt), pair_rows_ref(*srt)
+        got_p, want_p = overlap_pairs(*rows), overlap_pairs_ref(*rows)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(zip(got[:3], want[:3])),
+                max_abs_err(zip(got_p[:4], want_p[:4])))
+        err = max(err, e)
+        line = {"case": case, "hit_rows": rows[0].numel(),
+                "pair_rows": got[0].numel(), "pairs": got_p[4],
+                "max_group": got[3],
+                "launched": _build.LAUNCHES["overlap_pairs"] - before}
+        lines.append(line)
+        if e or got[3] != want[3] or got_p[4:] != want_p[4:]:
+            fail("overlap_pairs != its plain version at %s" % case)
+        if line["launched"] != (2 if rows[0].numel() else 0):
+            fail("overlap_pairs launched %d times at %s"
+                 % (line["launched"], case))
+        if case == "big_group" and got[3] <= 64:
+            fail("the big group has %d rows" % got[3])
+    case, kw = cases[1] if not small else cases[0]
+    rows = overlap_rows_on(overlap_readset(rng, case, **kw), dev)
+    srt = sort_rows(*rows)
+    h, xs, js, st, first = srt
+    krank, cnt, _mg = count_launch(h, first)
+    incl = torch.cumsum(cnt, 0)
+    total = int(incl[-1])
+    count_ms = device_ms(lambda: count_launch(h, first), 20)[0]
+    emit_ms = device_ms(lambda: emit_launch(xs, js, st, krank, cnt, incl,
+                                            total), 20)[0]
+    call_ms = device_ms(lambda: pair_rows(*srt), 10)[0]
+    plain = device_ms(lambda: pair_rows_ref(*srt), 3, 1)[0]
+    sort_ms = device_ms(lambda: sort_rows(*rows), 10)[0]
+    key, rank, agree, _ = pair_rows(*srt)
+    reduce_ms = device_ms(lambda: reduce_pairs(key, rank, agree), 5, 1)[0]
+    ms = count_ms + emit_ms
+    b_ms, b_by = bound_ms(nbytes(*srt) + nbytes(key, rank, agree))
+    report["overlap_pairs"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, bound_share=b_ms / ms, library_ms=None,
+        library="none: no one PyTorch call enumerates the pairs",
+        count_ms=count_ms, emit_ms=emit_ms, pair_rows_call_ms=call_ms,
+        sort_ms=sort_ms, reduce_ms=reduce_ms,
+        timed="%s: %d hit rows, %d pair rows" % (case, h.numel(), total))
+    say({"phase": "overlap_kernel", "cases": lines, "max_abs_err": err,
+         "timed": case, "hit_rows": h.numel(), "pair_rows": total,
+         "count_ms": count_ms, "emit_ms": emit_ms, "call_ms": call_ms,
+         "plain_ms": plain, "sort_ms": sort_ms, "reduce_ms": reduce_ms,
+         "bound_ms": b_ms, "card": nvidia_smi_line()})
 
 
 def write_reads(path, n_reads, read_len, seed):
@@ -848,6 +1088,242 @@ def phase_profile(small, work):
         profiling._stages.clear()
 
 
+_ACGT = b"ACGT"
+
+
+def write_fasta(path, records):
+    """(name, 2-bit codes) records as FASTA, one line a sequence."""
+    import numpy as np
+    bases = np.frombuffer(_ACGT, np.uint8)
+    with open(path, "wb") as f:
+        for name, codes in records:
+            f.write(b">%s\n" % name.encode())
+            f.write(bases[codes].tobytes())
+            f.write(b"\n")
+
+
+def sampled_reads(rng, genome, n, length, sub, rc_every):
+    """n reads of ``length`` at uniform starts in ``genome`` (codes), a
+    fraction ``sub`` of their bases drawn anew, every ``rc_every``-th
+    reverse-complemented."""
+    import numpy as np
+    for i, s in enumerate(rng.integers(0, len(genome) - length + 1, n)):
+        r = genome[s:s + length].copy()
+        m = rng.random(length) < sub
+        r[m] = rng.integers(0, 4, int(m.sum()))
+        if i % rc_every == rc_every - 1:
+            r = 3 - r[::-1]
+        yield "r%d" % i, np.ascontiguousarray(r, np.uint8)
+
+
+# resource usage: whole lines, and the tail of modrep's "read ... good:" line
+_TIMING = re.compile(r"user\t[^\n]*")
+
+
+@contextlib.contextmanager
+def recorded_scanners():
+    """Every ModimizerScanner made inside the block, for its counters."""
+    from modimizer_tpu_torch.ops.seqhash import ModimizerScanner
+    made = []
+    init = ModimizerScanner.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    ModimizerScanner.__init__ = record
+    try:
+        yield made
+    finally:
+        ModimizerScanner.__init__ = init
+
+
+def run_app(tool, argv, work, tag, device=None, env=None):
+    """``tool``'s main(argv) in this process, stdout and stderr to files
+    (the native engines write to the file descriptors): (stdout and
+    stderr with the timing lines dropped, wall s, the scanners made, the
+    stage timers' seconds)."""
+    import importlib
+    import torch
+    from modimizer_tpu_torch.utils import profiling
+    main = importlib.import_module("modimizer_tpu_torch.cli." + tool).main
+    out_p = os.path.join(work, tag + ".out")
+    err_p = os.path.join(work, tag + ".err")
+    kw = {} if device is None else {"device": device}
+    enabled, profiling._enabled = profiling._enabled, True
+    profiling._stages.clear()
+    try:
+        with environ(**(env or {})), recorded_scanners() as made, \
+                open(out_p, "w") as out, open(err_p, "w") as err, \
+                contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            main([str(a) for a in argv], **kw)
+            if device is not None:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        stages = {k: v[0] for k, v in sorted(profiling._stages.items())}
+    finally:
+        profiling._enabled = enabled
+        profiling._stages.clear()
+    texts = []
+    for p in (out_p, err_p):
+        with open(p) as f:
+            texts.append(_TIMING.sub("", f.read()))
+        os.unlink(p)
+    return texts[0], texts[1], wall, made, stages
+
+
+def app_case(tool, argv, work, tag, launches, path_kernels=None, files=(),
+             host_env=None, compare_stderr=False):
+    """``tool`` on the card and on the port's host path.  On the card the
+    kernels of ``path_kernels`` (default PATH_KERNELS[tool]) are counted
+    from 0 and must each launch, and every scan must stay on the card; on
+    the builder path the count replaces the scan, so no scanner scans and
+    densify must not launch.  stdout (and stderr), and each file of
+    ``files``, must be byte-identical; ``argv`` and ``files`` name the
+    path's own files with a {path} field ("card" or "host")."""
+    import torch
+    from modimizer_tpu_torch import _build
+    kernels = PATH_KERNELS[path_kernels or tool]
+    paths = {}
+    for path in ("host", "card"):
+        args = [str(a).format(path=path) for a in argv]
+        if path == "card":
+            _build.reset_launches()
+            out, err, wall, made, stages = run_app(
+                tool, args, work, tag, device=torch.device("cuda"))
+            counts = {n: _build.LAUNCHES[n] for n in kernels}
+            if not all(counts.values()):
+                fail("%s: a kernel was never launched: %s" % (tag, counts))
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            scans = [s for s in made if s.used_device]
+            if path_kernels == "builder":
+                if scans or _build.LAUNCHES["densify"]:
+                    fail("%s: the input was not counted on the card" % tag)
+            elif not scans or any(s.device.type != "cuda" for s in scans):
+                fail("%s: no scan ran on the card" % tag)
+            if any(s.n_fallback for s in made):
+                fail("%s: a chunk fell back to the host rescan (%s)"
+                     % (tag, [s.n_fallback for s in made]))
+            # the card's files are named .card.: compare as the host's
+            for a, b in zip(args, (str(a).format(path="host")
+                                   for a in argv)):
+                if a != b:
+                    out, err = out.replace(a, b), err.replace(a, b)
+        else:
+            out, err, wall, made, stages = run_app(
+                tool, args, work, tag + ".host",
+                env=dict({"MODIMIZER_SCAN": "host"}, **(host_env or {})))
+            counts = {}
+            if not made or any(s.device is not None or s.used_device
+                               for s in made):
+                fail("%s: the host path did not scan on the host" % tag)
+        paths[path] = (out, err, wall, counts,
+                       sum(s.n_wide for s in made), len(made), stages)
+    (ho, he, hs, _, _, _, h_st), (co, ce, cs, counts, n_wide, n_scans,
+                                  c_st) = paths["host"], paths["card"]
+    same = co == ho and (ce == he or not compare_stderr)
+    for stem in files:
+        with open(stem.format(path="card"), "rb") as a, \
+                open(stem.format(path="host"), "rb") as b:
+            same = same and a.read() == b.read()
+    if not same or not co:
+        fail("%s: the card's output differs from the host path's" % tag)
+    say({"phase": "apps", "case": tag, "argv": [str(a) for a in argv],
+         "identical": same, "stdout_bytes": len(co), "files": len(files),
+         "card_s": cs, "host_s": hs, "launches": counts, "scans": n_scans,
+         "n_wide": n_wide, "n_fallback": 0, "card_stages_s": c_st,
+         "host_stages_s": h_st, "card": nvidia_smi_line()})
+    return co
+
+
+def phase_apps(small, work, launches):
+    """modmap, modasm and modrep through their main(argv, device=cuda), each
+    against the port's host path (MODIMIZER_SCAN=host, and
+    MODIMIZER_OVERLAPS=host for modasm) in this process: config 3
+    (modmap -K 24 -W 31 -f ref -q reads), config 5 (the port's modutils
+    builds the modset on the card's builder path, then modasm -S -b -c -S
+    -o2 100 -u) and the rDNA read set (modrep -R -s1 -s2 -s3).  Every kernel
+    of each path must launch, every scan stay on the card, and stdout and
+    each written file be byte-identical."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    f = os.path.join
+    t0 = time.perf_counter()
+    # config 3: modmap
+    c3 = dict(CONFIG3, **({"ref_len": SMALL["ref_len"], "n_reads":
+                          SMALL["n_reads"]} if small else {}))
+    ref = rng.integers(0, 4, c3["ref_len"]).astype(np.uint8)
+    write_fasta(f(work, "ref.fa"), [("chr20", ref)])
+    write_fasta(f(work, "map_reads.fa"), sampled_reads(
+        rng, ref, c3["n_reads"], c3["read_len"], c3["sub"], c3["rc_every"]))
+    del ref
+    say({"phase": "apps", "data": "config3", "seconds":
+         time.perf_counter() - t0, **c3})
+    app_case("modmap", ["-K", c3["k"], "-W", c3["w"], "-f", f(work, "ref.fa"),
+                        "-q", f(work, "map_reads.fa")], work, "modmap.config3",
+             launches)
+
+    # config 5: modset on the builder path, then modasm
+    c5 = dict(CONFIG5, **({"genome_len": SMALL["genome_len"], "n_reads":
+                          SMALL["n_reads"]} if small else {}))
+    t0 = time.perf_counter()
+    genome = rng.integers(0, 4, c5["genome_len"]).astype(np.uint8)
+    reads = f(work, "asm_reads.fa")
+    write_fasta(reads, sampled_reads(rng, genome, c5["n_reads"],
+                                     c5["read_len"], c5["sub"],
+                                     c5["rc_every"]))
+    del genome
+    say({"phase": "apps", "data": "config5", "seconds":
+         time.perf_counter() - t0, **c5})
+    xmod = f(work, "X.{path}.mod")
+    with main_sizes(small):
+        app_case("modutils", ["-c", 24, c5["k"], c5["w"], 17, "-a", reads,
+                              "-s", 10, 45, 75, "-w", xmod], work,
+                 "modutils.config5", launches, path_kernels="builder",
+                 files=(xmod,))
+    # small inputs hold fewer than 2^20 hits: the size rule would pick the
+    # host walk, so the device phase 1 is asked for
+    asm_env = {"MODIMIZER_OVERLAPS": "device"} if small else {}
+    with environ(**asm_env):
+        out = app_case("modasm", ["-m", f(work, "X.card.mod"), "-f", reads,
+                                  "-S", "-b", "-c", "-S", "-o2", 100, "-u"],
+                       work, "modasm.config5", launches,
+                       host_env={"MODIMIZER_OVERLAPS": "host"})
+    m = re.search(r"^RS (\d+) mod hits", out, re.M)
+    say({"phase": "apps", "case": "modasm.config5", "mod_hits":
+         int(m.group(1)) if m else None,
+         "device_overlaps_by_rule": not small})
+
+    # rDNA: modrep
+    t0 = time.perf_counter()
+    unit = rng.integers(0, 4, SMALL["unit_len"] if small
+                        else RDNA["unit_len"]).astype(np.uint8)
+    write_fasta(f(work, "unit.fa"), [("unit", unit)])
+    rreads = list(sampled_reads(rng, np.tile(unit, RDNA["units"]),
+                                RDNA["n_reads"], len(unit) * RDNA["units"],
+                                RDNA["sub"], RDNA["rc_every"]))
+    rreads.append(("junk", rng.integers(0, 4, RDNA["junk_len"]).astype(
+        np.uint8)))
+    write_fasta(f(work, "rep_reads.fa"), rreads)
+    say({"phase": "apps", "data": "rdna", "seconds":
+         time.perf_counter() - t0, "unit_len": len(unit), **RDNA})
+    for stem in ("unit", "rep_reads"):
+        app_case("modutils", ["-c", 20, 16, 16, 17, "-a", f(work, stem +
+                                                             ".fa"),
+                              "-w", f(work, stem + ".{path}.mod")], work,
+                 "modutils.%s" % stem, launches, path_kernels="scanner",
+                 files=(f(work, stem + ".{path}.mod"),))
+    app_case("modrep", ["-R", f(work, "unit.fa"), f(work, "unit.{path}.mod")]
+             + [a for mode in ("-s1", "-s2", "-s3") for a in
+                (mode, f(work, "rep_reads.fa"),
+                 f(work, "rep_reads.{path}.mod"))],
+             work, "modrep.rdna", launches, compare_stderr=True)
+    check_imports()
+
+
 def phase_probes(small, launches):
     """Each probe entry point in this process on the card, at the scripts'
     C = 2^24 and the main path's chunk C = 2^25 (2^15 with --small); each
@@ -935,6 +1411,14 @@ def main(argv=None):
             "source": "modimizer_tpu_torch/csrc/front_ops.cu",
             "replaces": "scripts/probe_front.py:36"},
     }
+    report["find_sorted"] = {
+        "name": "find_sorted", "route": "cuda",
+        "source": "modimizer_tpu_torch/csrc/lookup.cu",
+        "replaces": "modimizer_tpu/parallel/lookup.py:43"}
+    report["overlap_pairs"] = {
+        "name": "overlap_pairs", "route": "cuda",
+        "source": "modimizer_tpu_torch/csrc/overlaps.cu",
+        "replaces": "modimizer_tpu/parallel/overlaps.py:50"}
     for name, line in (("tala16", 68), ("dot16", 103), ("roll12", 136),
                        ("cumsum128", 165)):
         report[name] = {"name": name, "route": "cuda",
@@ -957,6 +1441,9 @@ def main(argv=None):
         if "profile" in phases:
             os.makedirs(work, exist_ok=True)
             phase_profile(a.small, work)
+        if "apps" in phases:
+            os.makedirs(work, exist_ok=True)
+            phase_apps(a.small, work, launches)
         if "probes" in phases:
             phase_probes(a.small, launches)
     finally:

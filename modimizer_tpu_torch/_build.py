@@ -27,9 +27,10 @@ _LIB = None
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"scan_compact": 0, "densify": 0, "front_planes": 0,
-            "front_mma": 0, "front_ops": 0, "tala16": 0, "dot16": 0,
-            "roll12": 0, "cumsum128": 0}
+LAUNCHES = {"scan_compact": 0, "densify": 0, "find_sorted": 0,
+            "overlap_pairs": 0, "front_planes": 0, "front_mma": 0,
+            "front_ops": 0, "tala16": 0, "dot16": 0, "roll12": 0,
+            "cumsum128": 0}
 
 
 def reset_launches():
@@ -141,6 +142,22 @@ def _declare(L):
         p, p, p, p,            # src_k, src_meta (nullable), cnt, agg
         i64, i32, i64,         # nb, bo, cap
         p, p,                  # dst_k, dst_meta (nullable)
+        p]                     # stream
+    L.mz_find_sorted.restype = ctypes.c_int
+    L.mz_find_sorted.argtypes = [
+        p, p, i64,             # keys, vals, n
+        p, i64, p,             # q, nq, out
+        p]                     # stream
+    L.mz_overlap_count.restype = ctypes.c_int
+    L.mz_overlap_count.argtypes = [
+        p, p, i64,             # h, first, n
+        p, p, p,               # krank, cnt, max_group
+        p]                     # stream
+    L.mz_overlap_emit.restype = ctypes.c_int
+    L.mz_overlap_emit.argtypes = [
+        p, p, p,               # xs, js, st
+        p, p, p, i64,          # krank, cnt, incl, n
+        p, p, p,               # out_key, out_rank, out_agree
         p]                     # stream
     L.mz_front_planes.restype = ctypes.c_int
     L.mz_front_planes.argtypes = [

@@ -6,11 +6,19 @@ import math
 import os
 
 BLOCK = 4096             # the chunk is a multiple of this many positions
+# scan_compact's compaction block is one CUDA thread block of at most 1,024
+# threads, 32 positions a thread
+MAX_BLK = 1 << 15
 # positions per compaction block of scan_compact (MODIMIZER_BLK, as in the
 # JAX package, so both packages block alike)
 BLK_COMPACT = int(os.environ.get("MODIMIZER_BLK", "512"))
 if BLK_COMPACT < 128 or (BLK_COMPACT & (BLK_COMPACT - 1)):
     raise ValueError("MODIMIZER_BLK must be a power of two >= 128")
+if BLK_COMPACT > MAX_BLK:
+    raise ValueError(
+        "MODIMIZER_BLK=%d: scan_compact takes at most %d positions a "
+        "compaction block (one 1,024-thread block of 32 positions a thread)"
+        % (BLK_COMPACT, MAX_BLK))
 
 
 def scan_bo(w: int, blk: int = BLK_COMPACT) -> int:

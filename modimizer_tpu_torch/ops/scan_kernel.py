@@ -23,11 +23,9 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .consts import BLK_COMPACT
+from .consts import BLK_COMPACT, MAX_BLK
 from .packed import (as_i64, canonical_hashes, derive_tw, emit_test,
                      expand_bits, extract_kmers)
-
-MAX_BLK = 1 << 15       # a compaction block is at most one 1024-thread block
 
 
 class KernelParams(NamedTuple):

@@ -63,7 +63,7 @@ class ModimizerScanner:
     (kmers, global positions, isF) in exact stream order."""
 
     def __init__(self, sh, chunk: int = DEFAULT_CHUNK, device=None,
-                 host: bool = None):
+                 host: bool = None, want_isf: bool = True):
         if host is None:
             host = os.environ.get("MODIMIZER_SCAN") == "host"
         if device is not None:
@@ -80,6 +80,7 @@ class ModimizerScanner:
         self.cap = int(min((self.chunk // BLK_COMPACT) * self.bo,
                            max(4096, self.chunk // sh.w
                                + max(self.chunk // (8 * sh.w), 65536))))
+        self.want_isf = want_isf      # kept as the JAX scanner keeps it
         self.max_inflight = 4
         self.host = bool(host)        # every scan on the native host scan
         self.used_device = False      # set per scan call

@@ -82,15 +82,14 @@ def compact_local(state_k, state_d, state_m, bases, recv_k, recv_p, *, S):
     return compact_core(state_k, state_d, state_m, bk, bm, S)
 
 
-def _one_device(device):
-    """The builder's device: a torch.device or its name, or a list of one
-    (the JAX builder's one-device mesh); None takes the CUDA card."""
+def _one_device(device, who="ShardedModsetBuilder"):
+    """``who``'s device: a torch.device or its name, or a list of one (the
+    JAX package's one-device mesh); None takes the CUDA card."""
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             raise NotImplementedError(
-                "ShardedModsetBuilder: %d devices; the port counts on one "
-                "(the routed multi-device build is not ported yet)"
-                % len(device))
+                "%s: %d devices; the port runs on one (the mesh-sharded "
+                "paths are not ported yet)" % (who, len(device)))
         device = device[0]
     return require_cuda() if device is None else torch.device(device)
 

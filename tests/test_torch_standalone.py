@@ -3,9 +3,10 @@
 the host modules (``core``, ``io``, ``native``, ``utils``, ``cli``, the
 scanner's host methods) behave as the JAX package's originals: Seqhash
 fields, ``scan_bo``, the sequence readers, the native host scan and the
-``MODIMIZER_SCAN=host`` CLI's ``.mod`` bytes.  Also the constants of the
-division-free emit test that ``csrc/scan_compact.cu`` takes, emulated with
-Python ints against ``h % w == 0``."""
+``MODIMIZER_SCAN=host`` CLI's ``.mod`` bytes, the ``Array``/``DICT``
+containers of ``io/carray``.  Also the constants of the division-free emit
+test that ``csrc/scan_compact.cu`` takes, emulated with Python ints against
+``h % w == 0``, and ``MODIMIZER_BLK`` refused above the kernel's limit."""
 
 import ast
 import gzip
@@ -24,11 +25,13 @@ modimizer_tpu.configure_jax()
 
 from modimizer_tpu.cli import modutils as jax_cli  # noqa: E402
 from modimizer_tpu.core.seqhash import Seqhash as JaxSeqhash  # noqa: E402
+from modimizer_tpu.io import carray as jax_carray  # noqa: E402
 from modimizer_tpu.io import seqio as jax_seqio  # noqa: E402
 from modimizer_tpu.io import stream_seq as jax_stream  # noqa: E402
 from modimizer_tpu.ops import seqhash as jax_ops  # noqa: E402
 from modimizer_tpu_torch.cli import modutils as port_cli  # noqa: E402
 from modimizer_tpu_torch.core.seqhash import Seqhash  # noqa: E402
+from modimizer_tpu_torch.io import carray  # noqa: E402
 from modimizer_tpu_torch.io import seqio, stream_seq  # noqa: E402
 from modimizer_tpu_torch.ops import seqhash as port_ops  # noqa: E402
 from modimizer_tpu_torch.ops.packed import emit_test  # noqa: E402
@@ -67,14 +70,19 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(rel):
 
 
 _NO_JAX = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import modimizer_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(modimizer_tpu_torch.__path__,
                                               "modimizer_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-from modimizer_tpu_torch.cli import modutils
+from modimizer_tpu_torch.cli import modasm, modmap, modrep, modutils
 modutils.main(sys.argv[1:], device="cpu")
+modmap.main(["-K", "16", "-W", "13", "-f", "g.fa", "-q", "r.fa"],
+            device="cpu")
+os.environ["MODIMIZER_OVERLAPS"] = "device"
+modasm.main(["-m", "p.mod", "-f", "r.fa", "-S", "-b", "-u"], device="cpu")
+modrep.main(["-R", "g.fa", "p.mod", "-s2", "r.fa", "p.mod"], device="cpu")
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "modimizer_tpu")]
 assert not bad, bad
 sys.stderr.write("STANDALONE_OK %d\n" % len(names))
@@ -82,18 +90,26 @@ sys.stderr.write("STANDALONE_OK %d\n" % len(names))
 
 
 def test_port_runs_without_jax_or_the_jax_package(tmp_path):
-    random_fasta(tmp_path / "r.fa", 40, 300, seed=5)
+    """Every port module imports, and the four CLIs run on device="cpu",
+    with neither jax nor the JAX package in sys.modules."""
+    random_fasta(tmp_path / "r.fa", 40, 300, seed=5, genome_len=3000)
+    random_fasta(tmp_path / "g.fa", 1, 3000, seed=5, genome_len=3000)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     env.pop("MODIMIZER_SCAN", None)
     r = subprocess.run(
         [sys.executable, "-c", _NO_JAX, "-c", "20", "16", "16", "17",
-         "-a", str(tmp_path / "r.fa"), "-w", str(tmp_path / "p.mod")],
+         "-a", str(tmp_path / "r.fa"), "-s", "4", "18", "40", "-w",
+         str(tmp_path / "p.mod")],
         env=env, cwd=str(tmp_path), capture_output=True, text=True,
         timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "STANDALONE_OK" in r.stderr
     assert int(r.stderr.split("STANDALONE_OK")[1].split()[0]) > 30
     assert "added 40 sequences" in r.stdout
+    assert "hashes from 1 reference sequences" in r.stdout     # modmap -f
+    assert "\nQ\tread0\t300\t" in r.stdout                   # modmap -q
+    assert "RS 40 sequences" in r.stdout                       # modasm -S
+    assert "found " in r.stderr and "n1 " in r.stdout          # modrep -s2
 
 
 # ---- the copies against the originals ----
@@ -227,6 +243,53 @@ def test_host_path_cli_matches_jax_host_path(seqs, tmp_path, monkeypatch,
     for ext in (".mod", ".txt", ".his"):
         assert ((tmp_path / ("port" + ext)).read_bytes()
                 == (tmp_path / ("jax" + ext)).read_bytes()), ext
+
+
+def test_carray_containers_match():
+    """io/carray's Array and DICT: the same growth, probe layout and
+    serialized bytes as the JAX package's, and each reads the other's."""
+    names = ["chr%d" % i for i in range(700)] + ["x" * 40, "chr1 dup"]
+    mine, theirs = io.BytesIO(), io.BytesIO()
+    for mod, f in ((carray, mine), (jax_carray, theirs)):
+        a = mod.CArray(4, 4, np.uint32)
+        for i in (0, 3, 9, 1000, 5000):
+            a.set(i, np.uint32(i * 7 + 1))
+        a.write(f)
+        d = mod.CDict(16)
+        assert [d.add(n) for n in names] == [(i, True) for i in
+                                             range(len(names))]
+        assert d.add("chr5") == (5, False) and d.find("nope")[0] is None
+        d.write(f)
+        mod.CArray.from_values(range(3000), np.int32).write(f)
+    assert mine.getvalue() == theirs.getvalue()
+    assert carray._hash_string(b"chr20", 11, True) == \
+        jax_carray._hash_string(b"chr20", 11, True)
+    assert (carray.ARRAY_MAGIC, carray._ARR_HDR.format) == (
+        jax_carray.ARRAY_MAGIC, jax_carray._ARR_HDR.format)
+    for reader in (carray, jax_carray):
+        f = io.BytesIO(theirs.getvalue())
+        a = reader.CArray.read(f, np.uint32)
+        d = reader.CDict.read(f)
+        assert (a.dim, a.max, int(a.get(5000))) == (5001, 5001, 35001)
+        assert d.max == len(names) and d.name(701) == "chr1 dup"
+        assert d.find("chr699")[0] == 699
+
+
+@pytest.mark.parametrize("blk,ok", [(32768, True), (65536, False)])
+def test_modimizer_blk_above_the_kernel_limit_is_refused(blk, ok):
+    """MODIMIZER_BLK is refused at import above 2^15, the most positions
+    scan_compact's compaction block takes."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), MODIMIZER_BLK=str(blk))
+    r = subprocess.run(
+        [sys.executable, "-c", "import modimizer_tpu_torch.ops.consts as c; "
+         "print(c.BLK_COMPACT, c.MAX_BLK)"],
+        env=env, capture_output=True, text=True, timeout=120)
+    if ok:
+        assert r.returncode == 0 and r.stdout.split() == [str(blk), "32768"]
+    else:
+        assert r.returncode != 0
+        assert ("MODIMIZER_BLK=65536: scan_compact takes at most 32768 "
+                "positions a compaction block" in r.stderr)
 
 
 def test_trace_region_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
