@@ -54,8 +54,16 @@ SEED = 17
 PATH_KERNELS = {"builder": ("scan_compact",),
                 "scanner": ("scan_compact", "densify"),
                 "modmap": ("scan_compact", "densify", "find_sorted"),
-                "modasm": ("scan_compact", "densify", "overlap_pairs"),
+                "modasm": ("scan_compact", "densify", "overlap_groups",
+                           "overlap_join"),
                 "modrep": ("scan_compact", "densify")}
+# kernels a path launches only on some inputs, counted and reported but not
+# required: overlaps.cu's overflow path, for a read with more distinct
+# partners than the join's table holds
+PATH_MAY = {"modasm": ("overlap_dense",)}
+# the C entry points whose launches make up one line of the kernels report
+ENTRIES = {"overlap_pairs": ("overlap_groups", "overlap_join",
+                             "overlap_dense")}
 PROBE_KERNELS = ("front_planes", "front_mma", "front_ops", "tala16", "dot16",
                  "roll12", "cumsum128")
 FRONT_KERNELS, MOSAIC_KERNELS = PROBE_KERNELS[:3], PROBE_KERNELS[3:]
@@ -567,219 +575,191 @@ SMALL = {"ref_len": 400_000, "genome_len": 200_000, "n_reads": 100,
          "unit_len": 4_000}
 
 
-def lookup_inputs(rng, n, nq, dev):
-    """A config-3-like table (n unique random 48-bit k-mers, ascending, ids
-    1..n in random order) and nq queries: half present, half random, and
-    one all-ones (-1)."""
+def lookup_edge(rng, case, dev):
+    """(keys, vals, queries) on ``dev`` for one edge of the search: one key,
+    the top level full (TOP keys) and one past it, two levels above the
+    keys, duplicate keys (the lower bound's id), keys with the sign bit;
+    the queries hit every node's first key, its neighbours and random
+    values, with -1, 0 and the int64 extremes; "unaligned" is a key column
+    that does not start on 16 bytes (the kernel's 8-byte loads)."""
     import numpy as np
     import torch
-    keys = np.unique(rng.integers(0, 1 << 48, n, dtype=np.int64))
-    vals = (rng.permutation(len(keys)) + 1).astype(np.int32)
-    present = rng.choice(keys, nq // 2) if len(keys) else keys[:0]
-    q = np.concatenate([present, rng.integers(0, 1 << 48, nq - len(present))])
-    if nq:
-        q[-1] = -1
-    rng.shuffle(q)
-    return tuple(torch.from_numpy(a).to(dev) for a in (keys, vals, q))
+    from modimizer_tpu_torch.parallel.lookup import FAN, TOP
+    n = {"n1": 1, "top": TOP, "top+1": TOP + 1, "two_levels": FAN * TOP + 1,
+         "dups": 50_000, "sign_bit": 20_000, "unaligned": 50_001}[case]
+    keys = np.sort(rng.integers(-(1 << 62), 1 << 62, n) if case == "sign_bit"
+                   else rng.integers(0, 1 << 48, n))
+    if case == "dups":
+        keys = np.sort(np.repeat(keys[::5], 5)[:n])
+    vals = rng.integers(1, 1 << 31, n).astype(np.int32)
+    q = np.concatenate([keys[rng.integers(0, n, 3000)], keys[::FAN],
+                        keys[::FAN] - 1, keys[::FAN] + 1, keys[-3:] + 1,
+                        rng.integers(-(1 << 63), 1 << 62, 2000),
+                        np.array([-1, 0, (1 << 63) - 1, -(1 << 63)])])
+    keys, vals, q = (torch.from_numpy(a.astype(t)).to(dev) for a, t in
+                     ((keys, np.int64), (vals, np.int32), (q, np.int64)))
+    if case == "unaligned":     # a view 8 bytes into its storage
+        keys, vals = keys[1:], vals[1:]
+    return keys, vals, q
 
 
 def check_lookup_kernel(small, rng, report):
     """find_sorted against its plain version on the card, bit for bit: a
     small table, the config-3 shape (the reference's emits ~ 64.4 M / 31
     keys, the queries' ~ 30 M / 31), an empty query (no launch), an empty
-    table and the all-ones query; then timed at the config-3 shape beside
-    its plain version and, in turns, the library route."""
+    table, the all-ones query, and the search's edges (lookup_edge); then
+    timed at the config-3 shape in turns with the library route, beside its
+    plain version, the index build and the same queries sorted."""
     import torch
     from modimizer_tpu_torch import _build
     from modimizer_tpu_torch.parallel.lookup import (find_sorted,
-                                                     find_sorted_ref)
+                                                     find_sorted_ref,
+                                                     search_index)
     from modimizer_tpu_torch.probes._timing import bound_ms
     from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    from modimizer_tpu_torch.probes.probe_lookup import (SHAPES, library_route,
+                                                         lookup_bytes,
+                                                         lookup_inputs)
     dev = torch.device("cuda")
-    full = (CONFIG3["ref_len"] // CONFIG3["w"],
-            CONFIG3["n_reads"] * CONFIG3["read_len"] // CONFIG3["w"])
+    full = SHAPES["config3"]
     shapes = [(5_000, 3_000)] + ([] if small else [full])
-    err, cases = 0.0, []
-    for n, nq in shapes + [(5_000, 0), (0, 3_000)]:
-        keys, vals, q = lookup_inputs(rng, n, nq, dev)
+    cases = [("random", s) for s in shapes + [(5_000, 0), (0, 3_000)]]
+    cases += [(e, None) for e in ("n1", "top", "top+1", "two_levels", "dups",
+                                  "sign_bit", "unaligned")]
+    err, lines = 0.0, []
+    for case, shape in cases:
+        keys, vals, q = (lookup_inputs(rng, *shape, dev) if shape
+                         else lookup_edge(rng, case, dev))
+        index = search_index(keys)
         before = _build.LAUNCHES["find_sorted"]
-        got = find_sorted(keys, vals, q)
+        got = find_sorted(keys, vals, q, index)
         want = find_sorted_ref(keys, vals, q)
         torch.cuda.synchronize()
         e = max_abs_err([(got, want)])
         err = max(err, e)
         launched = _build.LAUNCHES["find_sorted"] - before
-        cases.append({"n": keys.numel(), "nq": q.numel(), "launched":
-                      launched, "hits": int((got != 0).sum())})
-        if e or launched != (1 if nq else 0) or int(got[q == -1].sum()):
-            fail("find_sorted != find_sorted_ref at n=%d nq=%d" % (n, nq))
+        lines.append({"case": case, "n": keys.numel(), "nq": q.numel(),
+                      "index": index.numel(), "launched": launched,
+                      "hits": int((got != 0).sum())})
+        if e or launched != (1 if q.numel() else 0) or (
+                case != "sign_bit" and int(got[q == -1].sum())):
+            fail("find_sorted != find_sorted_ref at %s n=%d nq=%d"
+                 % (case, keys.numel(), q.numel()))
     n, nq = shapes[-1]
     keys, vals, q = lookup_inputs(rng, n, nq, dev)
-
-    def library():
-        pos = torch.searchsorted(keys, q).clamp_(max=keys.numel() - 1)
-        return torch.where(keys[pos] == q, vals[pos], 0)
-
+    index = search_index(keys)
     turns = {"library": [], "kernel": []}
     for who in ("library", "kernel", "kernel", "library"):
         turns[who].append(device_ms(
-            library if who == "library"
-            else (lambda: find_sorted(keys, vals, q)), 20)[0])
+            (lambda: library_route(keys, vals, q)) if who == "library"
+            else (lambda: find_sorted(keys, vals, q, index)), 20)[0])
     ms = min(turns["kernel"])
     plain = device_ms(lambda: find_sorted_ref(keys, vals, q), 3, 1)[0]
-    # the same queries in ascending order: a warp's lanes walk one path,
-    # so the search's loads are shared; what remains is the step chain
+    index_ms = device_ms(lambda: search_index(keys), 20)[0]
+    # the same queries in ascending order: a warp's lanes share lines
     qs = torch.sort(q).values
-    sorted_ms = device_ms(lambda: find_sorted(keys, vals, qs), 20)[0]
-    hits = int((find_sorted(keys, vals, q) != 0).sum())
-    # keys and queries read once, the output written once, and the ids of
-    # this run's hits
-    b_ms, b_by = bound_ms(keys.numel() * 8 + q.numel() * 12 + hits * 4)
+    sorted_ms = device_ms(lambda: find_sorted(keys, vals, qs, index), 20)[0]
+    hits = int((find_sorted(keys, vals, q, index) != 0).sum())
+    b_ms, b_by = bound_ms(lookup_bytes(keys, q, hits))
     report["find_sorted"].update(
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, bound_share=b_ms / ms,
         library_ms=min(turns["library"]),
         library="torch.searchsorted + clamp + gather + compare + "
         "torch.where, in turns with the kernel", sorted_queries_ms=sorted_ms,
+        index_build_ms=index_ms,
         timed="n=%d keys, nq=%d queries (%d hits)" % (n, nq, hits))
-    say({"phase": "lookup_kernel", "cases": cases, "max_abs_err": err,
-         "n": n, "nq": nq, "turns_ms": turns, "plain_ms": plain,
+    say({"phase": "lookup_kernel", "cases": lines, "max_abs_err": err,
+         "n": n, "nq": nq, "index": index.numel(), "turns_ms": turns,
+         "plain_ms": plain, "index_build_ms": index_ms,
          "sorted_queries_ms": sorted_ms, "bound_ms": b_ms,
          "card": nvidia_smi_line()})
 
 
-class FakeReadset:
-    """What overlap_counts reads of a readset: hits (mod | strand << 31),
-    hit_off, and the modset's info and depth."""
-
-    def __init__(self, reads, info, strand):
-        import numpy as np
-        from types import SimpleNamespace
-        h = np.concatenate(reads).astype(np.uint32) if reads else \
-            np.zeros(0, np.uint32)
-        self.hits = h | (strand.astype(np.uint32) << np.uint32(31))
-        self.hit_off = np.concatenate(
-            [[0, 0], np.cumsum([len(r) for r in reads])]).astype(np.int64)
-        depth = np.bincount(h, minlength=len(info)).astype(np.uint16)
-        self.ms = SimpleNamespace(info=info, depth=depth)
-
-
-def overlap_readset(rng, case, n_reads=60, mods_per_read=40, n_mods=300):
-    """Hit rows for the overlap kernel: reads that tile a genome of mods
-    (read 0 burned, every other read reversed, 95 % of the mods copy 1,
-    0.2 % of the hits repeating the one before: the n_repeat path), or one
-    edge: no copy-1 row, groups of one row, a group of more than 64 rows,
-    every row of a group on one read."""
-    import numpy as np
-    info = (1 + 2 * (rng.random(n_mods + 1) >= 0.95)).astype(np.uint8)
-    if case == "no_copy1":
-        info[:] = 2
-    if case == "singletons":
-        reads = [np.arange(1, n_mods + 1)[r::n_reads]
-                 for r in range(n_reads)]
-    elif case == "big_group":
-        reads = [np.array([5, rng.integers(6, n_mods + 1), 5 if r % 7 else 6])
-                 for r in range(100)]
-    elif case == "one_read":
-        reads = [np.array([3, 9, 3, 3, 12, 3, 3]), np.array([9, 12, 3]),
-                 np.array([3])]
-    else:
-        starts = rng.integers(1, n_mods - mods_per_read, n_reads)
-        reads = []
-        for r, s in enumerate(starts):
-            m = np.arange(s, s + mods_per_read)
-            dup = np.nonzero(rng.random(len(m)) < 0.002)[0]
-            m[dup[dup > 0]] = m[dup[dup > 0] - 1]
-            reads.append(m[::-1] if r % 2 else m)
-    mod_bit = rng.integers(0, 2, n_mods + 1)
-    strand = np.concatenate([mod_bit[r] ^ (i % 2) for i, r in
-                             enumerate(reads)]) if reads else np.zeros(0)
-    return FakeReadset(reads, info, strand)
-
-
-def overlap_rows_on(rs, dev):
-    import numpy as np
-    import torch
-    from modimizer_tpu_torch.parallel.overlaps import overlap_inputs
-    return [torch.from_numpy(np.ascontiguousarray(a).view(
-        np.int32 if a.dtype == np.uint32 else np.uint8)).to(dev)
-        for a in overlap_inputs(rs)[0]]
-
-
 def check_overlap_kernel(small, rng, report):
-    """overlap_pairs against its plain version on the card, bit for bit:
-    the pair rows (pair_rows vs pair_rows_ref) and the reduced pairs
-    (overlap_pairs vs overlap_pairs_ref), on a small read set, the config-5
-    shape (9,283 reads of 15 kbp / 31 = 484 mods over the genome's
-    4,641,652 / 31 mods: ~4.5 M hit rows, ~30 rows a group) and the edges;
-    then timed at the config-5 shape: the kernel's two launches, the whole
-    pair_rows call, its plain version, the step-1 sort and the step-4
-    reduce."""
+    """overlap_pairs against its plain version on the card, bit for bit, on
+    a small read set, the config-5 shape (9,283 reads of 15 kbp / 31 = 483
+    mods over the genome's 4,641,652 / 31 mods: ~4.5 M hit rows, ~30 rows a
+    group), the edges, and with the table's capacity lowered so that reads
+    take the overflow path; then timed at the config-5 shape: the whole
+    call, its plain version, its steps (A: the sort and the groups launch;
+    B: the count and emit passes; the overflow path at the lowered
+    capacity) and its peak of allocated device memory."""
     import torch
     from modimizer_tpu_torch import _build
     from modimizer_tpu_torch.parallel.overlaps import (
-        count_launch, emit_launch, overlap_pairs, overlap_pairs_ref,
-        pair_rows, pair_rows_ref, reduce_pairs, sort_rows)
-    from modimizer_tpu_torch.probes._timing import bound_ms, nbytes
+        overlap_join, overlap_pairs, overlap_pairs_ref)
+    from modimizer_tpu_torch.probes import probe_overlaps as po
+    from modimizer_tpu_torch.probes._timing import bound_ms
     from modimizer_tpu_torch.probes._timing import time_ms as device_ms
     dev = torch.device("cuda")
-    full = {"n_reads": CONFIG5["n_reads"],
-            "mods_per_read": CONFIG5["read_len"] // CONFIG5["w"],
-            "n_mods": CONFIG5["genome_len"] // CONFIG5["w"]}
-    cases = [("tiled", {})] + ([] if small else [("config5", full)]) + [
-        (e, {}) for e in ("no_copy1", "singletons", "big_group", "one_read")]
+    n_reads, per_read, n_mods = po.SHAPES["config5"]
+    full = {"n_reads": n_reads, "mods_per_read": per_read,
+            "n_mods": n_mods}
+    cases = [("tiled", {}, None)] + ([] if small else [
+        ("config5", full, None)]) + [
+        (e, {}, None) for e in ("no_copy1", "singletons", "big_group",
+                                "one_read")] + [
+        ("tiled", {}, 4), ("big_group", {}, 1)] + ([] if small else [
+            ("config5", full, po.SMALL_CAP)])
     err, lines = 0.0, []
-    for case, kw in cases:
-        rows = overlap_rows_on(overlap_readset(rng, case, **kw), dev)
-        srt = sort_rows(*rows)
-        before = _build.LAUNCHES["overlap_pairs"]
-        got, want = pair_rows(*srt), pair_rows_ref(*srt)
-        got_p, want_p = overlap_pairs(*rows), overlap_pairs_ref(*rows)
+    for case, kw, cap in cases:
+        rows = po.overlap_rows_on(po.overlap_readset(rng, case, **kw), dev)
+        before = dict(_build.LAUNCHES)
+        if cap is None:
+            got = overlap_pairs(*rows) + (None,)
+        else:
+            got = overlap_join(*rows, cap=cap)
+        want = overlap_pairs_ref(*rows)
         torch.cuda.synchronize()
-        e = max(max_abs_err(zip(got[:3], want[:3])),
-                max_abs_err(zip(got_p[:4], want_p[:4])))
+        e = max_abs_err(zip(got[:4], want[:4]))
         err = max(err, e)
-        line = {"case": case, "hit_rows": rows[0].numel(),
-                "pair_rows": got[0].numel(), "pairs": got_p[4],
-                "max_group": got[3],
-                "launched": _build.LAUNCHES["overlap_pairs"] - before}
+        launched = {n: _build.LAUNCHES[n] - before[n]
+                    for n in ENTRIES["overlap_pairs"]}
+        line = {"case": case, "cap": cap, "hit_rows": rows[0].numel(),
+                "pairs": got[4], "max_group": got[5], "flagged": got[6],
+                "launched": launched}
         lines.append(line)
-        if e or got[3] != want[3] or got_p[4:] != want_p[4:]:
-            fail("overlap_pairs != its plain version at %s" % case)
-        if line["launched"] != (2 if rows[0].numel() else 0):
-            fail("overlap_pairs launched %d times at %s"
-                 % (line["launched"], case))
-        if case == "big_group" and got[3] <= 64:
-            fail("the big group has %d rows" % got[3])
-    case, kw = cases[1] if not small else cases[0]
-    rows = overlap_rows_on(overlap_readset(rng, case, **kw), dev)
-    srt = sort_rows(*rows)
-    h, xs, js, st, first = srt
-    krank, cnt, _mg = count_launch(h, first)
-    incl = torch.cumsum(cnt, 0)
-    total = int(incl[-1])
-    count_ms = device_ms(lambda: count_launch(h, first), 20)[0]
-    emit_ms = device_ms(lambda: emit_launch(xs, js, st, krank, cnt, incl,
-                                            total), 20)[0]
-    call_ms = device_ms(lambda: pair_rows(*srt), 10)[0]
-    plain = device_ms(lambda: pair_rows_ref(*srt), 3, 1)[0]
-    sort_ms = device_ms(lambda: sort_rows(*rows), 10)[0]
-    key, rank, agree, _ = pair_rows(*srt)
-    reduce_ms = device_ms(lambda: reduce_pairs(key, rank, agree), 5, 1)[0]
-    ms = count_ms + emit_ms
-    b_ms, b_by = bound_ms(nbytes(*srt) + nbytes(key, rank, agree))
+        if e or got[4:6] != want[4:]:
+            fail("overlap_pairs != its plain version at %s cap %s"
+                 % (case, cap))
+        # a call: the groups launch, the join's count pass and its emit
+        # pass when there are pairs; the overflow path's two when a read
+        # was flagged (the default cap flags none of these cases)
+        passes = 1 + (got[4] > 0) if rows[0].numel() else 0
+        if launched != {"overlap_groups": min(1, passes),
+                        "overlap_join": passes,
+                        "overlap_dense": passes if got[6] else 0}:
+            fail("overlap_pairs launched %s at %s cap %s"
+                 % (launched, case, cap))
+        if case == "big_group" and got[5] <= 64:
+            fail("the big group has %d rows" % got[5])
+        if cap is not None and not got[6]:
+            fail("no read took the overflow path at %s cap %d" % (case, cap))
+    name = "tiled" if small else "config5"
+    rows = po.shape_rows(name, dev)
+    want = overlap_pairs_ref(*rows)
+    call_ms = device_ms(lambda: overlap_pairs(*rows), 10, 2)[0]
+    plain = device_ms(lambda: overlap_pairs_ref(*rows), 3, 1)[0]
+    steps = po.step_times(rows, po.ov.TABLE_CAP)
+    over = po.overflow_times(rows, po.SMALL_CAP)
+    peak = po.peak_bytes(lambda: overlap_pairs(*rows))
+    plain_peak = po.peak_bytes(lambda: overlap_pairs_ref(*rows))
+    b_ms, b_by = bound_ms(po.overlap_bytes(rows, want[4]))
     report["overlap_pairs"].update(
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, bound_share=b_ms / ms, library_ms=None,
-        library="none: no one PyTorch call enumerates the pairs",
-        count_ms=count_ms, emit_ms=emit_ms, pair_rows_call_ms=call_ms,
-        sort_ms=sort_ms, reduce_ms=reduce_ms,
-        timed="%s: %d hit rows, %d pair rows" % (case, h.numel(), total))
+        max_abs_err=err, ms=call_ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, bound_share=b_ms / call_ms, library_ms=None,
+        library="none: no one PyTorch call joins and reduces the pairs",
+        steps=steps, overflow=over, peak_bytes=peak,
+        plain_peak_bytes=plain_peak,
+        timed="%s: %d hit rows, %d pairs" % (name, rows[0].numel(),
+                                             want[4]))
     say({"phase": "overlap_kernel", "cases": lines, "max_abs_err": err,
-         "timed": case, "hit_rows": h.numel(), "pair_rows": total,
-         "count_ms": count_ms, "emit_ms": emit_ms, "call_ms": call_ms,
-         "plain_ms": plain, "sort_ms": sort_ms, "reduce_ms": reduce_ms,
-         "bound_ms": b_ms, "card": nvidia_smi_line()})
+         "timed": name, "hit_rows": rows[0].numel(), "pairs": want[4],
+         "max_group": want[5], "call_ms": call_ms, "plain_ms": plain,
+         "steps": steps, "overflow": over, "peak_bytes": peak,
+         "plain_peak_bytes": plain_peak, "bound_ms": b_ms,
+         "card": nvidia_smi_line()})
 
 
 def write_reads(path, n_reads, read_len, seed):
@@ -1186,6 +1166,7 @@ def app_case(tool, argv, work, tag, launches, path_kernels=None, files=(),
     import torch
     from modimizer_tpu_torch import _build
     kernels = PATH_KERNELS[path_kernels or tool]
+    counted = kernels + PATH_MAY.get(path_kernels or tool, ())
     paths = {}
     for path in ("host", "card"):
         args = [str(a).format(path=path) for a in argv]
@@ -1193,8 +1174,8 @@ def app_case(tool, argv, work, tag, launches, path_kernels=None, files=(),
             _build.reset_launches()
             out, err, wall, made, stages = run_app(
                 tool, args, work, tag, device=torch.device("cuda"))
-            counts = {n: _build.LAUNCHES[n] for n in kernels}
-            if not all(counts.values()):
+            counts = {n: _build.LAUNCHES[n] for n in counted}
+            if not all(counts[n] for n in kernels):
                 fail("%s: a kernel was never launched: %s" % (tag, counts))
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
@@ -1448,6 +1429,11 @@ def main(argv=None):
             phase_probes(a.small, launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    for name, entries in ENTRIES.items():
+        if any(e in launches for e in entries):
+            by = {e: launches.pop(e, 0) for e in entries}
+            report[name].update(launches=sum(by.values()),
+                                launches_by_entry=by)
     for name, n in launches.items():
         report[name]["launches"] = n
     check_imports()

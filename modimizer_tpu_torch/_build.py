@@ -28,9 +28,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"scan_compact": 0, "densify": 0, "find_sorted": 0,
-            "overlap_pairs": 0, "front_planes": 0, "front_mma": 0,
-            "front_ops": 0, "tala16": 0, "dot16": 0, "roll12": 0,
-            "cumsum128": 0}
+            "overlap_groups": 0, "overlap_join": 0, "overlap_dense": 0,
+            "front_planes": 0, "front_mma": 0, "front_ops": 0, "tala16": 0,
+            "dot16": 0, "roll12": 0, "cumsum128": 0}
 
 
 def reset_launches():
@@ -145,19 +145,28 @@ def _declare(L):
         p]                     # stream
     L.mz_find_sorted.restype = ctypes.c_int
     L.mz_find_sorted.argtypes = [
-        p, p, i64,             # keys, vals, n
+        p, p, i64, p,          # keys, vals, n, index (the search levels)
         p, i64, p,             # q, nq, out
         p]                     # stream
-    L.mz_overlap_count.restype = ctypes.c_int
-    L.mz_overlap_count.argtypes = [
-        p, p, i64,             # h, first, n
-        p, p, p,               # krank, cnt, max_group
+    L.mz_overlap_groups.restype = ctypes.c_int
+    L.mz_overlap_groups.argtypes = [
+        p, p, p, p, i64,       # h, order, xs, st, n
+        p, p, p,               # grp, yb, max_group
         p]                     # stream
-    L.mz_overlap_emit.restype = ctypes.c_int
-    L.mz_overlap_emit.argtypes = [
-        p, p, p,               # xs, js, st
-        p, p, p, i64,          # krank, cnt, incl, n
-        p, p, p,               # out_key, out_rank, out_agree
+    L.mz_overlap_join.restype = ctypes.c_int
+    L.mz_overlap_join.argtypes = [
+        p, p, p, p, p, p,      # xs, js, st, first, grp, yb
+        i64, i32,              # n, cap
+        p, p, p, p,            # dcnt, flags, nflag, incl (NULL: count)
+        p, p, p, p,            # out key, cnt, agree, rank
+        p]                     # stream
+    L.mz_overlap_dense.restype = ctypes.c_int
+    L.mz_overlap_dense.argtypes = [
+        p, p, p, p, p, p,      # xs, js, st, first, grp, yb
+        i64, p, p,             # n, flags, nflag
+        i64, i32, p,           # nid, blocks, table
+        p, p,                  # dcnt, incl (NULL: count)
+        p, p, p, p,            # out key, cnt, agree, rank
         p]                     # stream
     L.mz_front_planes.restype = ctypes.c_int
     L.mz_front_planes.argtypes = [

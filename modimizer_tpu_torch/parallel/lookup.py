@@ -3,10 +3,13 @@
 ``_find_sorted_local``).
 
 The table is a sorted k-mer column with a parallel value column; a batch of
-queries is answered by one binary search per query, an equality test, and
-the value or 0 where absent (modsetIndexFind with isAdd = false).  On the
-card that is the CUDA kernel ``csrc/lookup.cu`` (``find_sorted``); on the
-CPU its plain PyTorch version ``find_sorted_ref``.
+queries is answered by a lower-bound search per query, an equality test,
+and the value or 0 where absent (modsetIndexFind with isAdd = false).  On
+the card that is the CUDA kernel ``csrc/lookup.cu`` (``find_sorted``), which
+searches a B+-tree of 16-key nodes laid over the column: its upper levels
+(every 16th key, every 256th, ...: ``search_index``) are built once with
+the table.  On the CPU it is the plain PyTorch version ``find_sorted_ref``,
+which ignores the index.
 
 u64 k-mers ride in int64: the keys are sorted in int64 order and searched
 with signed compares, so every u64 query finds its equal key.  The JAX
@@ -36,10 +39,40 @@ def _check(keys, vals, q):
         raise ValueError("find_sorted: keys and vals differ in length")
 
 
-def find_sorted_ref(keys, vals, q):
+FAN = 16          # keys a node of the search (csrc/lookup.cu)
+TOP = 8192        # entries of its top level, held in shared memory
+
+
+def index_levels(n):
+    """The search's levels above the keys (lookup_index::levels): the
+    length of each level k >= 1, keys[::16^k], up to the first of at most
+    TOP entries."""
+    lens = []
+    m = n
+    while m > TOP:
+        m = (m + FAN - 1) // FAN
+        lens.append(m)
+    return lens
+
+
+def search_index(keys):
+    """The search index of an ascending int64 key column: levels 1..K
+    (every 16th key, every 256th, ...) in one int64 tensor, each level but
+    the last padded with zeros to a multiple of 16 entries (the kernel's
+    nodes are 128-byte lines); empty when the keys fit the top level."""
+    lens = index_levels(keys.numel())
+    parts = []
+    for k, m in enumerate(lens, 1):
+        parts.append(keys[::FAN ** k])
+        if k < len(lens) and m % FAN:
+            parts.append(keys.new_zeros(FAN - m % FAN))
+    return torch.cat(parts) if parts else keys.new_empty(0)
+
+
+def find_sorted_ref(keys, vals, q, index=None):
     """Plain PyTorch version of the lookup kernel: keys int64 [n] ascending,
     vals int32 [n], q int64 [nq] -> int32 [nq], vals[p] where keys[p] == q,
-    else 0."""
+    else 0.  ``index`` is ignored."""
     _check(keys, vals, q)
     if keys.numel() == 0:
         return torch.zeros(q.shape, dtype=torch.int32, device=q.device)
@@ -48,14 +81,22 @@ def find_sorted_ref(keys, vals, q):
     return torch.where(hit, vals[pos], torch.zeros_like(vals[pos]))
 
 
-def find_sorted(keys, vals, q):
+def find_sorted(keys, vals, q, index=None):
     """The lookup: launches csrc/lookup.cu for CUDA tensors, runs
-    find_sorted_ref for CPU tensors.  An empty query launches nothing."""
+    find_sorted_ref for CPU tensors.  ``index`` is ``search_index(keys)``
+    (built here when None).  An empty query launches nothing."""
     if keys.device.type == "cpu":
         return find_sorted_ref(keys, vals, q)
     if keys.device.type != "cuda":
         raise ValueError("find_sorted: unsupported device %s" % keys.device)
     _check(keys, vals, q)
+    if index is None:
+        index = search_index(keys)
+    lens = index_levels(keys.numel())
+    want = sum(-(-m // FAN) * FAN for m in lens[:-1]) + sum(lens[-1:])
+    if (index.dtype != torch.int64 or index.device != keys.device
+            or index.shape != (want,) or not index.is_contiguous()):
+        raise ValueError("find_sorted: index is not search_index(keys)")
     out = torch.empty(q.shape, dtype=torch.int32, device=q.device)
     if q.numel() == 0:
         return out
@@ -63,6 +104,7 @@ def find_sorted(keys, vals, q):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = L.mz_find_sorted(keys.data_ptr(), vals.data_ptr(), keys.numel(),
+                              index.data_ptr() if index.numel() else None,
                               q.data_ptr(), q.numel(), out.data_ptr(),
                               stream)
     _build.check(rc, "find_sorted")
@@ -85,6 +127,7 @@ class DeviceTable:
         keys = torch.from_numpy(kmers).to(self.device)
         self.keys, order = torch.sort(keys, stable=True)
         self.vals = torch.from_numpy(values).to(self.device)[order]
+        self.index = search_index(self.keys)
 
     def find(self, q_kmers: np.ndarray) -> np.ndarray:
         """Batched lookup; returns u32 values aligned with q_kmers, 0 where
@@ -93,5 +136,5 @@ class DeviceTable:
         if len(q_kmers) == 0:
             return np.zeros(0, np.uint32)
         q = torch.from_numpy(q_kmers.view(np.int64)).to(self.device)
-        out = find_sorted(self.keys, self.vals, q)
+        out = find_sorted(self.keys, self.vals, q, self.index)
         return out.cpu().numpy().view(np.uint32)

@@ -10,19 +10,23 @@ orientation vote, modasm.c:361-365), and the first-encounter rank is
 min-reduced so candidates can be ordered like the reference's stable sort
 by descending count over first-encounter order (modasm.c:300-304,353).
 
-``overlap_pairs`` runs it on the device in four steps:
-  1. sort the hit rows by hkey (h where the row is a counted copy-1 row,
-     else 0xFFFFFFFF), stably: they arrive in (x, j) order, so this is the
-     JAX package's (h, x, j) order (``torch.sort``);
-  2. and 3. count each group and write every pair row once at its exact
-     slot: the CUDA kernel ``csrc/overlaps.cu`` (``pair_rows``; its plain
-     PyTorch version is ``pair_rows_ref``);
-  4. sort the pair keys and reduce each key to its row count, its sum of
-     strand agreement and its smallest rank (``torch.sort``,
-     ``unique_consecutive``, ``cumsum``, ``scatter_reduce_``).
+The plain version ``overlap_pairs_ref`` does it in three steps: sort the
+hit rows by hkey (h where the row is a counted copy-1 row, else
+0xFFFFFFFF), stably, so that rows arriving in (x, j) order are in the JAX
+package's (h, x, j) order (``sort_rows``); write every pair row
+(``pair_rows_ref``); sort the pair keys and reduce each to its row count,
+its sum of strand agreement and its smallest rank (``reduce_pairs``).
+``overlap_pairs`` on the card stores no pair row (``overlap_join``, the
+CUDA kernels of ``csrc/overlaps.cu``): the same stable ``torch.sort``, a
+launch that gives every row its group's bounds, then a join that reduces
+each read's pairs in a shared-memory table as it enumerates them, in a
+count pass and an emit pass around a ``cumsum`` of the per-read counts
+(and, for a read with more distinct partners than the table holds, the
+same walk into a table in device memory).
+
 The JAX device program enumerates the pairs by offset (1 + 2 (dmax - 1)
 rolled copies of every row, widening dmax until it covers the largest
-group); the pair rows here are the ones that sweep keeps once it is wide
+group); the pairs here are the ones that sweep keeps once it is wide
 enough, so the result is the same for any group size.  ``dmax`` and
 ``pair_cap`` stay in the signatures for the API and do not bound anything.
 
@@ -43,6 +47,13 @@ TOPBIT = np.uint32(0x80000000)
 TOPMASK = np.uint32(0x7FFFFFFF)
 HNONE = 0xFFFFFFFF             # hkey of a row that is in no group
 _I64_MAX = (1 << 63) - 1
+# distinct partners a read keeps in the join's shared-memory table; a read
+# with more takes the overflow path (csrc/overlaps.cu)
+TABLE_CAP = 512
+MAX_CAP = 4096          # the largest cap whose table fits (overlaps.cu)
+# the overflow path's tables: at most this many blocks and bytes
+DENSE_BLOCKS = 264
+DENSE_BYTES = 1 << 28
 
 
 def _check_rows(h, xs, js, st, first):
@@ -51,19 +62,19 @@ def _check_rows(h, xs, js, st, first):
                         ("js", js, torch.int32), ("st", st, torch.uint8),
                         ("first", first, torch.uint8)):
         if t.dtype != dt or t.shape != (n,) or not t.is_contiguous():
-            raise ValueError("pair_rows: %s must be contiguous %s [%d]"
+            raise ValueError("pair_rows_ref: %s must be contiguous %s [%d]"
                              % (name, dt, n))
         if t.device != h.device:
-            raise ValueError("pair_rows: inputs on different devices")
+            raise ValueError("pair_rows_ref: inputs on different devices")
 
 
 def pair_rows_ref(h, xs, js, st, first):
-    """Plain PyTorch version of the pair kernel.  Rows sorted by hkey ``h``
-    (int64); ``xs``, ``js`` int32, ``st`` and ``first`` uint8.  Returns
-    (key int64, rank int64, agree uint8) with one row for every x-side row
-    a (live and first) and every row b of a's group, in (a, b) order, and
-    max_group (the largest live group, at least 1, as the JAX program
-    reports it)."""
+    """Every pair row, in the plain version of overlap_pairs.  Rows sorted
+    by hkey ``h`` (int64); ``xs``, ``js`` int32, ``st`` and ``first``
+    uint8.  Returns (key int64, rank int64, agree uint8) with one row for
+    every x-side row a (live and first) and every row b of a's group, in
+    (a, b) order, and max_group (the largest live group, at least 1, as the
+    JAX program reports it)."""
     _check_rows(h, xs, js, st, first)
     n = h.shape[0]
     dev = h.device
@@ -84,68 +95,32 @@ def pair_rows_ref(h, xs, js, st, first):
     return key, rank, agree, max_group
 
 
-def count_launch(h, first):
-    """Launch 1 of csrc/overlaps.cu on CUDA rows: (krank, cnt int32 [n],
-    the largest live group as int32 [1])."""
-    n, dev = h.shape[0], h.device
-    krank = torch.empty(n, dtype=torch.int32, device=dev)
-    cnt = torch.empty(n, dtype=torch.int32, device=dev)
-    mg = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _build.check(_build.lib().mz_overlap_count(
-            h.data_ptr(), first.data_ptr(), n, krank.data_ptr(),
-            cnt.data_ptr(), mg.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream),
-            "overlap_pairs (count)")
-    return krank, cnt, mg
+def _hkey(hs, is_c1):
+    return torch.where(is_c1.bool(), hs.to(torch.int64),
+                       torch.full_like(hs, HNONE, dtype=torch.int64))
 
 
-def emit_launch(xs, js, st, krank, cnt, incl, total):
-    """Launch 2 of csrc/overlaps.cu: the ``total`` pair rows (key, rank
-    int64, agree uint8), ``incl`` the inclusive prefix of ``cnt``."""
-    dev = xs.device
-    key = torch.empty(total, dtype=torch.int64, device=dev)
-    rank = torch.empty(total, dtype=torch.int64, device=dev)
-    agree = torch.empty(total, dtype=torch.uint8, device=dev)
-    if total:
-        with torch.cuda.device(dev):
-            _build.check(_build.lib().mz_overlap_emit(
-                xs.data_ptr(), js.data_ptr(), st.data_ptr(),
-                krank.data_ptr(), cnt.data_ptr(), incl.data_ptr(),
-                xs.shape[0], key.data_ptr(), rank.data_ptr(),
-                agree.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-                "overlap_pairs (emit)")
-    return key, rank, agree
+def _u8(t):
+    return t if t.dtype == torch.uint8 else t.to(torch.uint8)
 
 
-def pair_rows(h, xs, js, st, first):
-    """The pair kernel: launches csrc/overlaps.cu (two kernels, with a
-    torch.cumsum and one read of the total between them) for CUDA tensors,
-    runs pair_rows_ref for CPU tensors."""
-    if h.device.type == "cpu":
-        return pair_rows_ref(h, xs, js, st, first)
-    if h.device.type != "cuda":
-        raise ValueError("pair_rows: unsupported device %s" % h.device)
-    _check_rows(h, xs, js, st, first)
-    if h.shape[0] == 0:
-        e = torch.empty(0, dtype=torch.int64, device=h.device)
-        return e, e.clone(), torch.empty(0, dtype=torch.uint8,
-                                         device=h.device), 1
-    krank, cnt, mg = count_launch(h, first)
-    incl = torch.cumsum(cnt, 0)
-    total, max_group = torch.stack([incl[-1], mg[0].to(torch.int64)]
-                                   ).tolist()
-    key, rank, agree = emit_launch(xs, js, st, krank, cnt, incl, total)
-    _build.LAUNCHES["overlap_pairs"] += 1
-    return key, rank, agree, max(1, max_group)
+def _check_inputs(xs, js, hs, strand, is_c1, firstc1):
+    n = xs.shape[0]
+    for name, t in (("xs", xs), ("js", js), ("hs", hs), ("strand", strand),
+                    ("is_c1", is_c1), ("firstc1", firstc1)):
+        if name in ("xs", "js", "hs") and t.dtype != torch.int32:
+            raise ValueError("overlap_pairs: %s must be int32" % name)
+        if t.shape != (n,) or not t.is_contiguous():
+            raise ValueError("overlap_pairs: %s must be contiguous [%d]"
+                             % (name, n))
+        if t.device != xs.device:
+            raise ValueError("overlap_pairs: inputs on different devices")
 
 
 def sort_rows(xs, js, hs, strand, is_c1, firstc1):
     """Step 1: hit rows (in (x, j) order) sorted by hkey, stably; returns
-    pair_rows' inputs (h, xs, js, st, first)."""
-    hkey = torch.where(is_c1.bool(), hs.to(torch.int64),
-                       torch.full_like(hs, HNONE, dtype=torch.int64))
-    h, order = torch.sort(hkey, stable=True)
+    pair_rows_ref's inputs (h, xs, js, st, first)."""
+    h, order = torch.sort(_hkey(hs, is_c1), stable=True)
     return (h, xs[order].contiguous(), js[order].contiguous(),
             strand[order].to(torch.uint8).contiguous(),
             firstc1[order].to(torch.uint8).contiguous())
@@ -169,6 +144,118 @@ def reduce_pairs(key, rank, agree):
     return uniq, counts, n_agree, first
 
 
+def _launch(name, dev, *args):
+    """C entry point mz_<name> of csrc/overlaps.cu on ``dev``'s stream,
+    counted in _build.LAUNCHES[name]."""
+    with torch.cuda.device(dev):
+        _build.check(getattr(_build.lib(), "mz_" + name)(
+            *args, torch.cuda.current_stream(dev).cuda_stream),
+            "overlap_pairs (%s)" % name)
+    _build.LAUNCHES[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def sort_key(hs, is_c1):
+    """The 32-bit key the card sorts the rows by: h | 0x80000000 (negative)
+    for a counted copy-1 row, 0 for the rest; a stable sort by it is the
+    stable sort by hkey (csrc/overlaps.cu ``live_key``)."""
+    return torch.where(is_c1.bool(), hs | torch.iinfo(torch.int32).min,
+                       torch.zeros_like(hs))
+
+
+def group_rows(xs, hs, st, is_c1):
+    """Step A on the card: the rows sorted stably by ``sort_key``
+    (``torch.sort``), then launch 1 of csrc/overlaps.cu.  Returns (grp int32
+    [n, 2]: each input row's group start in sorted order and its group
+    size, 0 outside a group; yb int32 [n]: each sorted row's (x << 1) |
+    strand; the largest live group as int32 [1])."""
+    n, dev = xs.shape[0], xs.device
+    h, order = torch.sort(sort_key(hs, is_c1), stable=True)
+    grp = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    yb = torch.empty(n, dtype=torch.int32, device=dev)
+    mg = torch.zeros(1, dtype=torch.int32, device=dev)
+    _launch("overlap_groups", dev, h.data_ptr(), order.data_ptr(),
+            xs.data_ptr(), st.data_ptr(), n, grp.data_ptr(), yb.data_ptr(),
+            mg.data_ptr())
+    return grp, yb, mg
+
+
+def join_pass(rows, groups, cap, dcnt, flags=None, nflag=None, incl=None,
+              out=(None,) * 4):
+    """Launch 2 (``incl`` None: the count pass, into ``dcnt``, ``flags``
+    and ``nflag``) or launch 4 (the emit pass into ``out``) of
+    csrc/overlaps.cu.  ``rows`` = (xs, js, st, first) in input order,
+    ``groups`` = (grp, yb)."""
+    xs = rows[0]
+    _launch("overlap_join", xs.device,
+            *[t.data_ptr() for t in rows + groups], xs.shape[0], cap,
+            dcnt.data_ptr(), _ptr(flags), _ptr(nflag), _ptr(incl),
+            *[_ptr(t) for t in out])
+
+
+def dense_pass(rows, groups, flags, nflag, nid, blocks, table, dcnt,
+               incl=None, out=(None,) * 4):
+    """Launch 3 (``incl`` None: the flagged reads' counts into ``dcnt``) or
+    launch 5 (their rows into ``out``): the overflow path, ``blocks``
+    blocks with a table of ``nid`` ids each in ``table``."""
+    xs = rows[0]
+    _launch("overlap_dense", xs.device,
+            *[t.data_ptr() for t in rows + groups], xs.shape[0],
+            flags.data_ptr(), nflag.data_ptr(), nid, blocks,
+            table.data_ptr(), dcnt.data_ptr(), _ptr(incl),
+            *[_ptr(t) for t in out])
+
+
+def dense_blocks(nid, n_flagged):
+    """Blocks of the overflow path: one a flagged read, at most DENSE_BLOCKS
+    and at most what DENSE_BYTES holds of tables of nid ids (16 B an id)."""
+    return max(1, min(n_flagged, DENSE_BLOCKS, DENSE_BYTES // (16 * nid)))
+
+
+def overlap_join(xs, js, hs, strand, is_c1, firstc1, *, cap=TABLE_CAP):
+    """overlap_pairs on CUDA rows through csrc/overlaps.cu, with no tensor
+    sized by the pair rows: returns its six results and the number of
+    reads that had more than ``cap`` distinct partners (the overflow
+    path)."""
+    _check_inputs(xs, js, hs, strand, is_c1, firstc1)
+    if not 1 <= cap <= MAX_CAP:
+        raise ValueError("overlap_join: cap must be in [1, %d]" % MAX_CAP)
+    n, dev = xs.shape[0], xs.device
+    if n == 0:
+        e = torch.empty(0, dtype=torch.int64, device=dev)
+        return e, e.clone(), e.clone(), e.clone(), 0, 1, 0
+    rows = (xs, js, _u8(strand), _u8(firstc1))
+    grp, yb, mg = group_rows(xs, hs, rows[2], is_c1)
+    groups = (grp, yb)
+    dcnt = torch.zeros(n, dtype=torch.int32, device=dev)
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    nflag = torch.zeros(1, dtype=torch.int32, device=dev)
+    join_pass(rows, groups, cap, dcnt, flags, nflag)
+    incl = torch.cumsum(dcnt, 0)
+    total, n_ovf, max_group, last_x = torch.stack(
+        [incl[-1], nflag[0].to(torch.int64), mg[0].to(torch.int64),
+         xs[-1].to(torch.int64)]).tolist()
+    table = None
+    if n_ovf:
+        nid = last_x + 1
+        blocks = dense_blocks(nid, n_ovf)
+        table = torch.empty(2 * nid * blocks, dtype=torch.int64, device=dev)
+        dense_pass(rows, groups, flags, nflag, nid, blocks, table, dcnt)
+        incl = torch.cumsum(dcnt, 0)
+        total = int(incl[-1])
+    out = tuple(torch.empty(total, dtype=torch.int64, device=dev)
+                for _ in range(4))
+    if total:
+        join_pass(rows, groups, cap, dcnt, incl=incl, out=out)
+        if n_ovf:
+            dense_pass(rows, groups, flags, nflag, nid, blocks, table, dcnt,
+                       incl, out)
+    return (*out, total, max(1, max_group), n_ovf)
+
+
 def _overlap_pairs(pairs, xs, js, hs, strand, is_c1, firstc1):
     rows = sort_rows(xs, js, hs, strand, is_c1, firstc1)
     key, rank, agree, max_group = pairs(*rows)
@@ -178,19 +265,25 @@ def _overlap_pairs(pairs, xs, js, hs, strand, is_c1, firstc1):
 
 def overlap_pairs(xs, js, hs, strand, is_c1, firstc1, *, dmax=64,
                   pair_cap=None):
-    """Pair enumeration and reduction on the rows' device (the kernel on
-    the card).  Per hit row: xs, js, hs int32 (h masked to 31 bits),
-    strand, is_c1, firstc1 (bool or uint8).  Returns (keys (x << 32) | y,
-    counts, n_agree, first_rank; int64, one per distinct pair, ascending
+    """Pair enumeration and reduction on the rows' device: csrc/overlaps.cu
+    for CUDA tensors (``overlap_join``), overlap_pairs_ref for CPU tensors.
+    Per hit row: xs, js, hs int32 (h masked to 31 bits), strand, is_c1,
+    firstc1 (0 or 1, any integer type or bool).  Returns (keys (x << 32) |
+    y, counts, n_agree, first_rank; int64, one per distinct pair, ascending
     key), n_pairs and max_group.  Exact for any group size; ``dmax`` and
     ``pair_cap`` are accepted for the API only."""
-    return _overlap_pairs(pair_rows, xs, js, hs, strand, is_c1, firstc1)
+    if xs.device.type == "cpu":
+        return overlap_pairs_ref(xs, js, hs, strand, is_c1, firstc1)
+    if xs.device.type != "cuda":
+        raise ValueError("overlap_pairs: unsupported device %s" % xs.device)
+    return overlap_join(xs, js, hs, strand, is_c1, firstc1)[:6]
 
 
 def overlap_pairs_ref(xs, js, hs, strand, is_c1, firstc1, *, dmax=64,
                       pair_cap=None):
-    """overlap_pairs with the kernel's plain version (pair_rows_ref) on
-    any device."""
+    """Plain PyTorch version of overlap_pairs, on any device: sort_rows,
+    pair_rows_ref (every pair row), reduce_pairs (a sort and a segment
+    reduce)."""
     return _overlap_pairs(pair_rows_ref, xs, js, hs, strand, is_c1,
                           firstc1)
 
@@ -242,7 +335,7 @@ def overlap_counts(readset, dmax: int = 64, pair_cap: int = None,
     sorted by (x, -n_hit, first-encounter order) — the reference's olap
     order after its stable sort (modasm.c:300-304,353) — plus per-read
     n_repeat and bad_repeat.  Stage timers (MODIMIZER_STAGES=1):
-    overlaps.prep, overlaps.device (upload, the four steps, download),
+    overlaps.prep, overlaps.device (upload, overlap_pairs, download),
     overlaps.order."""
     if device is None:
         device = getattr(readset, "device", None)
