@@ -68,6 +68,9 @@ PROBE_KERNELS = ("front_planes", "front_mma", "front_ops", "tala16", "dot16",
                  "roll12", "cumsum128")
 FRONT_KERNELS, MOSAIC_KERNELS = PROBE_KERNELS[:3], PROBE_KERNELS[3:]
 FRONT_W = (2, 16, 64)
+# front_mma's tails, in words: half of one block's 256, and a block and
+# a half
+MMA_TAIL_NJ = (128, 384)
 
 
 def say(obj):
@@ -353,7 +356,8 @@ def time_scan_kernels(small, report, errs):
 def check_front_kernels(small, rng, report):
     """The probe kernels against their plain versions on the card, bit for
     bit: every front_planes variant and front_mma at C = 2^15 and 2^24 for
-    each w in FRONT_W, every front_ops op on C elements after each number
+    each w in FRONT_W, front_mma also at NJ = 128 and 384 words (blocks
+    with idle warps), every front_ops op on C elements after each number
     of passes, 1 to 16 (one kernel instance each); then each timed beside
     its plain version at the probes' default shapes, the front_ops copy in
     turns with x.clone()."""
@@ -402,9 +406,16 @@ def check_front_kernels(small, rng, report):
                 check("front_ops", (front_ops(x, op, r),),
                       (front_ops_ref(x, op, r),),
                       "%s %s r=%d" % (tuple(x.shape), op, r))
+    for NJ in MMA_TAIL_NJ:
+        st = make_streams(random_chunk(rng, 16 * NJ, 16)[0], NJ)
+        for w in FRONT_W:
+            f1 = Seqhash.create(16, w, SEED).factor1
+            check("front_mma", front_mma(*st, factor1=f1, w=w),
+                  front_mma_ref(*st, factor1=f1, w=w),
+                  "NJ=%d w=%d" % (NJ, w))
     say({"phase": "front_kernels", "cases": n_cases, "sizes": sizes,
          "w": list(FRONT_W), "variants": list(VARIANTS), "ops": list(OPS),
-         "max_abs_err": errs})
+         "front_mma_tail_nj": list(MMA_TAIL_NJ), "max_abs_err": errs})
 
     # times at the probes' default shapes: C = 2^24 (k16 w16, "full"), and
     # u32 [8, 128, 1024] for the micro-ops (each op, 16 passes as the
