@@ -478,8 +478,12 @@ def check_front_kernels(small, rng, report):
 def check_mosaic_kernels(small, rng, report):
     """The compaction-primitive kernels against their plain versions on the
     card, bit for bit: random u32 and both signs of i8, ranks from -16 to
-    127 (those >= 112 land nowhere), at C = 2^16 and 2^24 positions; then
-    each timed beside its plain version on the probe's inputs at 2^24."""
+    127 (those >= 112 land nowhere), at C = 2^16 and 2^24 positions; dot16
+    also at nb = 1, 3, 133 blocks and on ranks as a compaction gives them
+    (``probe_mosaic_prims.run_ranks``) at each C, roll12 also at block-row
+    counts that are no multiple of its warps a block (R = 1 with NJ = 4096,
+    R = 3 with NJ = 8192); then each timed beside its plain version on the
+    probe's inputs at 2^24."""
     import numpy as np
     import torch
     from modimizer_tpu_torch.ops import mosaic_prims as mp
@@ -493,25 +497,38 @@ def check_mosaic_kernels(small, rng, report):
     def put(a):
         return torch.from_numpy(a).cuda()
 
+    def random_dot16(nb):
+        return (put(rng.integers(-16, 128, (nb, 1024)).astype(np.int32)),
+                put(rng.integers(-128, 128, (nb, 1024, 8)).astype(np.int8)))
+
+    def random_u32(shape):
+        return put(rng.integers(0, 2 ** 32, shape, dtype=np.uint64)
+                   .astype(np.uint32).view(np.int32))
+
+    cases, added = [], []
     for C in sizes:
-        u32 = rng.integers(0, 2 ** 32, (2, 16, C // 16), dtype=np.uint64)
-        x, idx = (put(a.astype(np.uint32).view(np.int32)) for a in u32)
+        x, idx = random_u32((16, C // 16)), random_u32((16, C // 16))
         e = put(rng.integers(-128, 128, (C // 128, 128)).astype(np.int8))
-        nb = C // 1024
-        rank = put(rng.integers(-16, 128, (nb, 1024)).astype(np.int32))
-        cols = put(rng.integers(-128, 128, (nb, 1024, 8)).astype(np.int8))
-        for name, args in (("tala16", (x, idx)), ("roll12", (x,)),
-                           ("cumsum128", (e,)), ("dot16", (rank, cols))):
-            got = getattr(mp, name)(*args)
-            want = getattr(mp, name + "_ref")(*args)
-            torch.cuda.synchronize()
-            err = max_abs_err([(got, want)])
-            errs[name] = max(errs[name], err)
-            n_cases += 1
-            if err:
-                fail("%s != its plain version at C=2^%d"
-                     % (name, C.bit_length() - 1))
+        tag = "C=2^%d" % (C.bit_length() - 1)
+        cases += [("tala16", (x, idx), tag), ("roll12", (x,), tag),
+                  ("cumsum128", (e,), tag),
+                  ("dot16", random_dot16(C // 1024), tag)]
+        added.append(("dot16", probe_mosaic_prims.run_ranks(
+            C // 1024, torch.device("cuda"), seed=C), tag + " run ranks"))
+    added += [("dot16", random_dot16(nb), "nb=%d" % nb) for nb in (1, 3, 133)]
+    added += [("roll12", (random_u32((r, nj)),), "R=%d NJ=%d" % (r, nj))
+              for r, nj in ((1, 4096), (3, 8192))]
+    for name, args, tag in cases + added:
+        got = getattr(mp, name)(*args)
+        want = getattr(mp, name + "_ref")(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err([(got, want)])
+        errs[name] = max(errs[name], err)
+        n_cases += 1
+        if err:
+            fail("%s != its plain version at %s" % (name, tag))
     say({"phase": "mosaic_kernels", "cases": n_cases, "sizes": sizes,
+         "added_cases": [[n, tag] for n, _a, tag in added],
          "max_abs_err": errs})
 
     C = sizes[-1]

@@ -11,27 +11,58 @@
 // would spill) and no scattered global reads.  A thread reads column c of
 // any row, so shared reads fall in bank c % 32 without conflicts.
 //
-// dot16 replaces probe_dot16: one-hot compaction of a 1024-position block,
+// dot16 replaces probe_dot16: compaction of a 1024-position block,
 // out[b][s][c] = sum_p [rank[b][p] == s] * cols[b][p][c], s < 112.  The
-// TPU built the one-hot [112 x 1024] i8 in VMEM and ran one MXU dot per
-// block; here it is the A operand of s8 mma.sync.m16n8k32 (the tensor-core
-// counterpart of the i8 dot), built in registers: 7 warps, one 16-slot
-// m-tile each, 32 k-steps of 32 positions, 7 x 32 MMAs a block.  Ranks go
-// to shared memory once as bytes (0xFF where no slot takes them), so four
-// one-hot entries are one __vcmpeq4; cols go to shared memory transposed
-// ([c][p], rows padded by 16 bytes) so a B fragment register is one
-// conflict-free 32-bit read.  Bound: ~260 MB per 2^24 positions (ranks 67,
-// cols 134, out 59) against 112 one-hot compares per position, done four
-// to an instruction.
+// TPU has no vector scatter, so it built the one-hot [112 x 1024] i8 in
+// VMEM and ran one MXU dot per block: 112 compares a position to feed the
+// matrix unit.  The function is a segment sum, 8 adds a position, and the
+// card has shared-memory atomics: a block of 256 threads zeroes a [c][s]
+// int32 table in shared memory (rows of DS = 116 words), each position
+// whose rank is in 0..111 adds its 8 sign-extended cols bytes into
+// table[c][rank] (red.shared.add.s32: integer sums give the same bits in
+// any order), and after a sync the table goes out as out[b] in [s][c]
+// order, one int4 a thread.  No one-hot and no tensor core.
+//   Map: warp w holds positions 128 w .. 128 w + 127, lane l the four
+// positions l + 32 i (i = 0..3), so a rank load is 128 B and a cols load
+// (uint2) 256 B a warp instruction.  The atomics of one (i, c) go to
+// words c * DS + rank of 32 consecutive positions: on the probe's ranks
+// (arange % 117) 32 consecutive words, no bank conflict, except in a
+// warp instruction whose positions straddle the wrap at 117, where two
+// ranks 96 apart share a bank: at most 2-way.  (Four consecutive
+// positions a lane would give 4-way conflicts on those ranks.)  The
+// store's reads, table[c0 + k][s] for 16 s and c0 in {0, 4}, fall in
+// distinct banks because DS = 116 puts the 8 rows 20 banks apart.
+//   Bytes in flight: every thread issues its 4 rank and 4 cols loads
+// (48 B) before it zeroes the table, so a block has 12 KB in flight before
+// its first atomic; 8 blocks fit an SM (2,048 threads, 3.7 KB of shared
+// memory each), up to 96 KB an SM.  Bound: memory, ~260 MB per 2^24
+// positions (ranks 67, cols 134, out 59); the issue (~20 instructions a
+// position, 8 of them atomics) stays under it.  ptxas: 24 registers, no
+// spill.
 //
 // roll12 replaces probe_roll: 12 stages acc += roll(acc, 2^s) along each
 // 4096-wide block row (jnp.roll's direction: acc[j] += acc[(j - 2^s) &
 // 4095]), u32 wraparound.  After the 12 stages every element is its block
 // row's cyclic sum; the kernel still runs every stage, which is what the
-// probe times.  One block per block row ping-pongs two 16 KB rows in
-// shared memory.  Bound: 12 stages of 4096 shared reads x 2 and a write
-// per block row, 134 MB of device traffic per 2^24 positions.
-//
+// probe times.  One warp holds one block row in registers: lane l keeps
+// elements j = l + 32 i in a[i], i = 0..127 (loads and stores 128 B
+// coalesced a warp instruction), with no shared memory and no block sync.
+//   Stages with 2^s >= 32 (s = 5..11) stay in the lane: the source of
+// (l, i) is (l, i - D mod 128), D = 2^s / 32, so each of the D cycles
+// {r, r + D, ...} is walked downward after its top's old value is saved
+// (one temporary a cycle).  Stages with 2^s < 32 (s = 0..4) are shuffles
+// from lane src = (l - 2^s) & 31: register i is shuffled once (sh_i) and
+// lane l adds sh_i if l >= 2^s, else sh_{i-1}; sh_{-1} is the shuffled
+// old a[127], taken before the walk from i = 127 down to 0, which leaves
+// a[i - 1] old when it is shuffled.  ops/mosaic_prims.py's roll12_lanes
+// runs this schedule on the CPU.  The five shuffle stages are one loop
+// (not unrolled: their code is the same but for the shift), the seven
+// register stages are unrolled.  Bound: memory, 134 MB per 2^24 positions
+// (in and out once); the issue is ~1,536 adds, 640 shuffles and 640
+// selects a warp per block row.  ptxas: 165 registers, no spill, so 12
+// warps (3 blocks of R_WARPS = 4) fit an SM, each with its 128 loads
+// (16 KB) issued at once: up to 192 KB in flight an SM.
+
 // cumsum128 replaces probe_cumsum128: out[r][j] = sum_{i <= j} e[r][i]
 // over 128 columns, i8 in, s32 out (the TPU's e @ UT128 product).  A warp
 // takes 16 rows: it stages them in shared memory (rows padded to 144 bytes
@@ -87,85 +118,115 @@ tala16_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ idx,
 // ----------------------------------------------------------------- dot16
 
 constexpr int D_BLK = 1024, D_BO = 112, D_NC = 8;
-constexpr int D_MT = D_BO / 16;             // 7 m-tiles, one a warp
-constexpr int D_THREADS = 256;
-constexpr int D_CT = D_BLK + 16;            // bytes a transposed cols row
-
-__device__ __forceinline__ uint32_t rank_byte(int r) {
-    return (unsigned)r < (unsigned)D_BO ? (uint32_t)r : 0xFFu;
-}
+constexpr int D_THREADS = 256;              // 8 warps of 128 positions
+constexpr int D_PER = D_BLK / D_THREADS;    // positions a lane
+constexpr int DS = D_BO + 4;                // words a table row [c]
+static_assert(DS % 4 == 0, "table rows are zeroed as int4");
 
 __global__ void __launch_bounds__(D_THREADS)
 dot16_kernel(const int32_t* __restrict__ rank, const int8_t* __restrict__ cols,
              int32_t* __restrict__ out) {
-    __shared__ uint32_t rk[D_BLK / 4];                  // 4 rank bytes a word
-    __shared__ __align__(16) uint8_t ct[D_NC][D_CT];    // cols as [c][p]
+    __shared__ __align__(16) int32_t tab[D_NC * DS];
     const int64_t b = blockIdx.x;
-    {
-        const int4 v = __ldg(reinterpret_cast<const int4*>(rank + b * D_BLK)
-                             + threadIdx.x);
-        rk[threadIdx.x] = rank_byte(v.x) | rank_byte(v.y) << 8
-                          | rank_byte(v.z) << 16 | rank_byte(v.w) << 24;
-    }
-    const uint2* C2 = reinterpret_cast<const uint2*>(cols + b * D_BLK * D_NC);
-    for (int p = threadIdx.x; p < D_BLK; p += D_THREADS) {
-        const uint2 v = __ldg(C2 + p);
+    const int p0 = 128 * (threadIdx.x >> 5) + (threadIdx.x & 31);
+    const int32_t* R = rank + b * D_BLK + p0;
+    const uint2* C2 = reinterpret_cast<const uint2*>(cols + b * D_BLK * D_NC)
+                      + p0;
+    int r[D_PER];
+    uint2 v[D_PER];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            ct[c][p] = (uint8_t)(v.x >> (8 * c));
-            ct[c + 4][p] = (uint8_t)(v.y >> (8 * c));
+    for (int i = 0; i < D_PER; ++i) {
+        r[i] = __ldg(R + 32 * i);
+        v[i] = __ldg(C2 + 32 * i);
+    }
+    if (threadIdx.x < D_NC * DS / 4)
+        reinterpret_cast<int4*>(tab)[threadIdx.x] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < D_PER; ++i) {
+        if ((unsigned)r[i] < (unsigned)D_BO) {
+            int32_t* t = tab + r[i];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                atomicAdd(t + c * DS, (int32_t)(int8_t)(v[i].x >> (8 * c)));
+                atomicAdd(t + (c + 4) * DS,
+                          (int32_t)(int8_t)(v[i].y >> (8 * c)));
+            }
         }
     }
     __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (warp >= D_MT)
-        return;
-    const int g = lane >> 2, t = lane & 3;
-    const uint32_t s0 = (uint32_t)(16 * warp + g) * 0x01010101u;
-    const uint32_t s1 = (uint32_t)(16 * warp + g + 8) * 0x01010101u;
-    int acc[4] = {0, 0, 0, 0};
-#pragma unroll 4
-    for (int ks = 0; ks < D_BLK / 32; ++ks) {
-        const uint32_t r0 = rk[8 * ks + t], r1 = rk[8 * ks + 4 + t];
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(&ct[g][32 * ks + 4 * t]);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(&ct[g][32 * ks + 16 + 4 * t]);
-        mma_s8(acc, __vcmpeq4(r0, s0) & 0x01010101u,
-               __vcmpeq4(r0, s1) & 0x01010101u,
-               __vcmpeq4(r1, s0) & 0x01010101u,
-               __vcmpeq4(r1, s1) & 0x01010101u, b0, b1);
+    // out[b] as [s][c]: thread t stores words 4t..4t+3, s = t / 2, c from
+    // 4 (t % 2)
+    if (threadIdx.x < D_BO * D_NC / 4) {
+        const int s = threadIdx.x >> 1, c0 = 4 * (threadIdx.x & 1);
+        reinterpret_cast<int4*>(out + b * D_BO * D_NC)[threadIdx.x] =
+            make_int4(tab[c0 * DS + s], tab[(c0 + 1) * DS + s],
+                      tab[(c0 + 2) * DS + s], tab[(c0 + 3) * DS + s]);
     }
-    int32_t* O = out + (b * D_BO + 16 * warp + g) * D_NC + 2 * t;
-    *reinterpret_cast<int2*>(O) = make_int2(acc[0], acc[1]);
-    *reinterpret_cast<int2*>(O + 8 * D_NC) = make_int2(acc[2], acc[3]);
 }
 
 // ---------------------------------------------------------------- roll12
 
 constexpr int RW = 4096;                    // the probe's block width MJ
-constexpr int R_THREADS = 1024;
+constexpr int R_REGS = RW / 32;             // elements a lane
+constexpr int R_WARPS = 4;                  // block rows a block, one a warp
 
-__global__ void __launch_bounds__(R_THREADS)
-roll12_kernel(const uint32_t* __restrict__ x, int64_t nj,
-              uint32_t* __restrict__ out) {
-    __shared__ __align__(16) uint32_t buf[2][RW];
-    const int64_t nblk = nj / RW;
-    const int64_t row = blockIdx.x / nblk, blk = blockIdx.x % nblk;
-    const int64_t off = row * nj + blk * RW;
-    reinterpret_cast<uint4*>(buf[0])[threadIdx.x] =
-        __ldg(reinterpret_cast<const uint4*>(x + off) + threadIdx.x);
-    __syncthreads();
-    int cur = 0;
-    for (int s = 0; s < 12; ++s) {
-        const int sh = 1 << s;
-        for (int j = threadIdx.x; j < RW; j += R_THREADS)
-            buf[cur ^ 1][j] = buf[cur][j] + buf[cur][(j - sh) & (RW - 1)];
-        cur ^= 1;
-        __syncthreads();
+// a[i] += a[(i - D) mod 128] for the 2^s = 32 D stages
+template <int D>
+__device__ __forceinline__ void roll_regs(uint32_t (&a)[R_REGS]) {
+#pragma unroll
+    for (int r = 0; r < D; ++r) {
+        const uint32_t top = a[r + R_REGS - D];
+#pragma unroll
+        for (int i = r + R_REGS - D; i >= r + D; i -= D)
+            a[i] += a[i - D];
+        a[r] += top;
     }
-    reinterpret_cast<uint4*>(out + off)[threadIdx.x] =
-        reinterpret_cast<const uint4*>(buf[cur])[threadIdx.x];
+}
+
+// a[i] += the element 2^s = d < 32 places back: from lane (l - d) & 31,
+// register i if l >= d, else register i - 1 (127 for i = 0)
+__device__ __forceinline__ void roll_lanes(uint32_t (&a)[R_REGS], int d,
+                                           int lane) {
+    const int src = (lane - d) & 31;
+    const bool own = lane >= d;
+    const uint32_t wrap = __shfl_sync(0xFFFFFFFFu, a[R_REGS - 1], src);
+    uint32_t hi = wrap;                     // sh_i
+#pragma unroll
+    for (int i = R_REGS - 1; i >= 0; --i) {
+        const uint32_t lo =                 // sh_{i-1}
+            i ? __shfl_sync(0xFFFFFFFFu, a[i - 1], src) : wrap;
+        a[i] += own ? hi : lo;
+        hi = lo;
+    }
+}
+
+__global__ void __launch_bounds__(R_WARPS * 32)
+roll12_kernel(const uint32_t* __restrict__ x, int64_t nrb,
+              uint32_t* __restrict__ out) {
+    const int lane = threadIdx.x & 31;
+    const int64_t rb = (int64_t)blockIdx.x * R_WARPS + (threadIdx.x >> 5);
+    if (rb >= nrb)
+        return;
+    const uint32_t* X = x + rb * RW + lane;
+    uint32_t a[R_REGS];
+#pragma unroll
+    for (int i = 0; i < R_REGS; ++i)
+        a[i] = __ldg(X + 32 * i);
+#pragma unroll 1
+    for (int s = 0; s < 5; ++s)
+        roll_lanes(a, 1 << s, lane);
+    roll_regs<1>(a);
+    roll_regs<2>(a);
+    roll_regs<4>(a);
+    roll_regs<8>(a);
+    roll_regs<16>(a);
+    roll_regs<32>(a);
+    roll_regs<64>(a);
+    uint32_t* O = out + rb * RW + lane;
+#pragma unroll
+    for (int i = 0; i < R_REGS; ++i)
+        O[32 * i] = a[i];
 }
 
 // ------------------------------------------------------------- cumsum128
@@ -247,9 +308,10 @@ int mz_dot16(const void* rank, const void* cols, int64_t nb, void* out,
 
 int mz_roll12(const void* x, int64_t rows, int64_t nj, void* out,
               void* stream) {
-    roll12_kernel<<<(unsigned)(rows * (nj / RW)), R_THREADS, 0,
-                    (cudaStream_t)stream>>>((const uint32_t*)x, nj,
-                                            (uint32_t*)out);
+    const int64_t nrb = rows * (nj / RW);   // block rows, contiguous
+    roll12_kernel<<<(unsigned)((nrb + R_WARPS - 1) / R_WARPS), R_WARPS * 32,
+                    0, (cudaStream_t)stream>>>((const uint32_t*)x, nrb,
+                                               (uint32_t*)out);
     return (int)cudaGetLastError();
 }
 
