@@ -64,13 +64,18 @@ PATH_MAY = {"modasm": ("overlap_dense",)}
 # the C entry points whose launches make up one line of the kernels report
 ENTRIES = {"overlap_pairs": ("overlap_groups", "overlap_join",
                              "overlap_dense")}
-PROBE_KERNELS = ("front_planes", "front_mma", "front_ops", "tala16", "dot16",
-                 "roll12", "cumsum128")
-FRONT_KERNELS, MOSAIC_KERNELS = PROBE_KERNELS[:3], PROBE_KERNELS[3:]
+PROBE_KERNELS = ("front_planes", "front_reduce", "front_mma", "front_ops",
+                 "tala16", "dot16", "roll12", "cumsum128")
+FRONT_KERNELS, MOSAIC_KERNELS = PROBE_KERNELS[:4], PROBE_KERNELS[4:]
 FRONT_W = (2, 16, 64)
 # front_mma's tails, in words: half of one block's 256, and a block and
-# a half
+# a half; front_reduce's blocks with idle threads (128 and 384 of a
+# block's 1,024 threads busy)
 MMA_TAIL_NJ = (128, 384)
+REDUCE_TAIL_NJ = (128, 384)
+# front_reduce with many words a thread (2^23 words, ~62 a thread on 132
+# SMs)
+REDUCE_WIDE_C = 1 << 27
 
 
 def say(obj):
@@ -355,16 +360,20 @@ def time_scan_kernels(small, report, errs):
 
 def check_front_kernels(small, rng, report):
     """The probe kernels against their plain versions on the card, bit for
-    bit: every front_planes variant and front_mma at C = 2^15 and 2^24 for
-    each w in FRONT_W, front_mma also at NJ = 128 and 384 words (blocks
-    with idle warps), every front_ops op on C elements after each number
-    of passes, 1 to 16 (one kernel instance each); then each timed beside
-    its plain version at the probes' default shapes, the front_ops copy in
-    turns with x.clone()."""
+    bit: every front_planes and front_reduce variant and front_mma at C =
+    2^15 and 2^24 for each w in FRONT_W, front_mma also at NJ = 128 and 384
+    words (blocks with idle warps), front_reduce also at NJ = 128 and 384
+    (blocks with idle threads), at C = 2^27 (many words a thread), on a
+    poly-A chunk (every position emits), three calls in a row and calls
+    alternated on two streams (its scratch left zero for the next), every
+    front_ops op on C elements after each number of passes, 1 to 16 (one
+    kernel instance each); then each timed beside its plain version at the
+    probes' default shapes, the front_ops copy in turns with x.clone()."""
     import numpy as np
     import torch
     from modimizer_tpu_torch.core.seqhash import Seqhash
-    from modimizer_tpu_torch.ops.front_kernel import (VARIANTS, front_planes,
+    from modimizer_tpu_torch.ops.front_kernel import (REDUCE_VARIANTS,
+                                                      VARIANTS, front_planes,
                                                       front_planes_ref,
                                                       make_streams)
     from modimizer_tpu_torch.ops.front_mma import front_mma, front_mma_ref
@@ -375,6 +384,7 @@ def check_front_kernels(small, rng, report):
     sizes = [1 << 15] if small else [1 << 15, 1 << 24]
     errs = dict.fromkeys(FRONT_KERNELS, 0.0)
     n_cases = 0
+    reduce_cases = []
 
     def check(name, got, want, tag):
         nonlocal n_cases
@@ -385,6 +395,19 @@ def check_front_kernels(small, rng, report):
         if e:
             fail("%s != its plain version at %s" % (name, tag))
 
+    def kernel_of(v):
+        return "front_reduce" if v in REDUCE_VARIANTS else "front_planes"
+
+    def check_reduce(st, tag, ws=FRONT_W, mj=128):
+        for w in ws:
+            f1 = Seqhash.create(16, w, SEED).factor1
+            for v in REDUCE_VARIANTS:
+                args = dict(factor1=f1, w=w, variant=v, mj=mj)
+                check("front_reduce", front_planes(*st, **args),
+                      front_planes_ref(*st, **args),
+                      "%s w=%d %s" % (tag, w, v))
+        reduce_cases.append(tag)
+
     for C in sizes:
         NJ = C // 16
         st = make_streams(random_chunk(rng, C, 16)[0], NJ)
@@ -394,7 +417,7 @@ def check_front_kernels(small, rng, report):
             for v in VARIANTS:
                 args = dict(factor1=f1, w=w, variant=v, mj=min(4096, NJ),
                             seed=w if v == "noin" else 0)
-                check("front_planes", front_planes(*st, **args),
+                check(kernel_of(v), front_planes(*st, **args),
                       front_planes_ref(*st, **args), tag + " " + v)
             check("front_mma", front_mma(*st, factor1=f1, w=w),
                   front_mma_ref(*st, factor1=f1, w=w), tag)
@@ -413,9 +436,40 @@ def check_front_kernels(small, rng, report):
             check("front_mma", front_mma(*st, factor1=f1, w=w),
                   front_mma_ref(*st, factor1=f1, w=w),
                   "NJ=%d w=%d" % (NJ, w))
+    for NJ in REDUCE_TAIL_NJ:
+        check_reduce(make_streams(random_chunk(rng, 16 * NJ, 16)[0], NJ),
+                     "NJ=%d" % NJ)
+    C = REDUCE_WIDE_C
+    check_reduce(make_streams(random_chunk(rng, C, 16)[0], C // 16),
+                 "C=2^%d" % (C.bit_length() - 1), ws=(16,), mj=4096)
+    C = sizes[-1]
+    check_reduce(make_streams(random_chunk(rng, C, 16, poly_a=True)[0],
+                              C // 16),
+                 "poly-A C=2^%d" % (C.bit_length() - 1),
+                 mj=min(4096, C // 16))
+    # the scratch each launch leaves zero for the next: three calls in a
+    # row, then calls alternated on two streams (each its own scratch)
+    st = make_streams(random_chunk(rng, C, 16)[0], C // 16)
+    f1 = Seqhash.create(16, 16, SEED).factor1
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for v in REDUCE_VARIANTS:
+        args = dict(factor1=f1, w=16, variant=v, mj=min(4096, C // 16))
+        want = front_planes_ref(*st, **args)
+        outs = [front_planes(*st, **args) for _ in range(3)]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        for i in range(4):
+            with torch.cuda.stream(streams[i % 2]):
+                outs.append(front_planes(*st, **args))
+        for i, got in enumerate(outs):
+            check("front_reduce", got, want,
+                  "%s call %d %s" % (v, i, "in a row" if i < 3
+                                     else "stream %d" % ((i - 3) % 2)))
+    reduce_cases += ["3 calls in a row", "4 calls on 2 streams"]
     say({"phase": "front_kernels", "cases": n_cases, "sizes": sizes,
          "w": list(FRONT_W), "variants": list(VARIANTS), "ops": list(OPS),
-         "front_mma_tail_nj": list(MMA_TAIL_NJ), "max_abs_err": errs})
+         "front_mma_tail_nj": list(MMA_TAIL_NJ),
+         "front_reduce_cases": reduce_cases, "max_abs_err": errs})
 
     # times at the probes' default shapes: C = 2^24 (k16 w16, "full"), and
     # u32 [8, 128, 1024] for the micro-ops (each op, 16 passes as the
@@ -425,6 +479,7 @@ def check_front_kernels(small, rng, report):
     f1 = Seqhash.create(16, 16, SEED).factor1
     st = make_streams(random_chunk(rng, C, 16)[0], C // 16)
     full = dict(factor1=f1, w=16, variant="full", mj=min(4096, C // 16))
+    red = {v: dict(full, variant=v) for v in REDUCE_VARIANTS}
     x = torch.from_numpy(rng.integers(0, 2 ** 32, 1 << 20, dtype=np.uint64)
                          .astype(np.uint32).view(np.int32)).cuda()
     x = x.view(8, 128, 1024)
@@ -437,27 +492,36 @@ def check_front_kernels(small, rng, report):
         turns[who].append(device_ms(fn, 20)[0])
     ops_ms = {op: device_ms(lambda: front_ops(x, op), 20)[0]
               for op in OPS if op != "copy"}
+    red_t = {v: (device_ms(lambda: front_planes(*st, **a), 20)[0],
+                 device_ms(lambda: front_planes_ref(*st, **a), 3, 1)[0])
+             for v, a in red.items()}
     t = {"front_planes": (
             device_ms(lambda: front_planes(*st, **full), 20)[0],
             device_ms(lambda: front_planes_ref(*st, **full), 3, 1)[0]),
          "front_mma": (
             device_ms(lambda: front_mma(*st, factor1=f1, w=16), 20)[0],
             device_ms(lambda: front_mma_ref(*st, factor1=f1, w=16), 3, 1)[0]),
+         "front_reduce": red_t["noout"],
          "front_ops": (min(turns["copy"]),
                        device_ms(lambda: front_ops_ref(x, "copy"), 3, 1)[0])}
     # the planes in, km (int32) and em (int8) out; front_mma's [24, 8] limb
-    # product is 384 int8 operations a position
+    # product is 384 int8 operations a position; front_reduce reads the
+    # streams and writes noout's [8, 128] int64
     io = nbytes(*st, *front_planes(*st, **full))
     bounds = {"front_planes": bound_ms(io),
+              "front_reduce": bound_ms(nbytes(*st) + 8 * 128 * 8),
               "front_mma": bound_ms(io, 384 * C),
               "front_ops": bound_ms(2 * nbytes(x))}
     library = {"front_planes": (None, "none: no PyTorch call hashes "
+                                "k-mers"),
+               "front_reduce": (None, "none: no PyTorch call hashes "
                                 "k-mers"),
                "front_mma": (None, "none: no PyTorch call hashes k-mers "
                              "(PyTorch has no integer matmul on CUDA)"),
                "front_ops": (min(turns["clone"]),
                              "x.clone(), in turns with the copy")}
     timed = {"front_planes": "C=2^%d k16 w16 full" % (C.bit_length() - 1),
+             "front_reduce": "C=2^%d k16 w16 noout" % (C.bit_length() - 1),
              "front_mma": "C=2^%d k16 w16" % (C.bit_length() - 1),
              "front_ops": "copy r=0..15 on u32 [8, 128, 1024]"}
     for name, (ms, plain_ms) in t.items():
@@ -468,8 +532,12 @@ def check_front_kernels(small, rng, report):
                             library_ms=library[name][0],
                             library=library[name][1], timed=timed[name])
     report["front_ops"].update(ops_ms=ops_ms, turns_ms=turns)
+    report["front_reduce"].update(
+        ms_by_variant={v: m[0] for v, m in red_t.items()},
+        plain_ms_by_variant={v: m[1] for v, m in red_t.items()})
     say({"phase": "front_kernel_times", "timed": timed,
          "ms": {n: v[0] for n, v in t.items()}, "front_ops_ms": ops_ms,
+         "front_reduce_ms": {v: m[0] for v, m in red_t.items()},
          "copy_clone_turns_ms": turns,
          "plain_ms": {n: v[1] for n, v in t.items()},
          "card": nvidia_smi_line()})
@@ -1408,9 +1476,13 @@ def main(argv=None):
                               "scripts/probe_pallas_parts.py:183",
                               "scripts/probe_pallas_parts.py:191",
                               "scripts/probe_pallas_parts.py:199",
-                              "scripts/probe_pallas_parts.py:211",
                               "scripts/probe_pallas_front.py:134",
                               "scripts/probe_front_mxu.py:200"]},
+        "front_reduce": {
+            "name": "front_reduce", "route": "cuda",
+            "source": "modimizer_tpu_torch/csrc/front_reduce.cu",
+            "replaces": "scripts/probe_pallas_parts.py:211",
+            "also_replaces": ["scripts/probe_pallas_front.py:134"]},
         "front_mma": {
             "name": "front_mma", "route": "cuda",
             "source": "modimizer_tpu_torch/csrc/front_mma.cu",

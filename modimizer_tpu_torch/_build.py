@@ -29,8 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"scan_compact": 0, "densify": 0, "find_sorted": 0,
             "overlap_groups": 0, "overlap_join": 0, "overlap_dense": 0,
-            "front_planes": 0, "front_mma": 0, "front_ops": 0, "tala16": 0,
-            "dot16": 0, "roll12": 0, "cumsum128": 0}
+            "front_planes": 0, "front_reduce": 0, "front_mma": 0,
+            "front_ops": 0, "tala16": 0, "dot16": 0, "roll12": 0,
+            "cumsum128": 0}
 
 
 def reset_launches():
@@ -174,7 +175,16 @@ def _declare(L):
         i64, i32, u64,         # nj, variant, factor1
         ctypes.c_uint32,       # wmask = w - 1
         i64, i32, i32,         # mj, seed, nblocks
-        p, p, p,               # km, em, acc
+        p, p,                  # km, em
+        p]                     # stream
+    L.mz_front_reduce_blocks_per_sm.restype = ctypes.c_int
+    L.mz_front_reduce_blocks_per_sm.argtypes = [i32, p]   # variant, &blocks
+    L.mz_front_reduce.restype = ctypes.c_int
+    L.mz_front_reduce.argtypes = [
+        p, p, p, p,            # pa, pb, za, zb
+        i64, i32, u64,         # nj, variant, factor1
+        ctypes.c_uint32, i32,  # wmask, nblocks
+        p, p,                  # scratch (zero in, zero out), out
         p]                     # stream
     L.mz_front_mma.restype = ctypes.c_int
     L.mz_front_mma.argtypes = [

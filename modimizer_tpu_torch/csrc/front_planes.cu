@@ -1,10 +1,12 @@
-// The k = 16 u32 scan front and its ablations (sm_90a).
+// The k = 16 u32 scan front and its ablations that store planes (sm_90a).
 //
 // Replaces the scan-front probe kernels of the JAX package's scripts/:
 //   probe_chain_time.py::kern_front (hashed and not), probe_pallas_parts.py::
-//   kern_full / kern_kmonly / kern_emonly / kern_noin / kern_noout,
-//   probe_pallas_front.py::plane_kernel / timing_kernel and
-//   probe_front_mxu.py::kern_nohash / kern_mul16.
+//   kern_full / kern_kmonly / kern_emonly / kern_noin,
+//   probe_pallas_front.py::plane_kernel and
+//   probe_front_mxu.py::kern_nohash / kern_mul16.  The two read-only
+//   reductions, kern_noout and timing_kernel (variants noout and count), are
+//   csrc/front_reduce.cu; mz_front_planes refuses them.
 // Contract: modimizer_tpu_torch/ops/front_kernel.py::front_planes_ref.  For
 // word j and phase s in [0, 16), position p = 16 j + s:
 //   kf = pa[j] << 2s | pb[j] >> (32 - 2s)   = __funnelshift_l(pb, pa, 2s)
@@ -19,28 +21,25 @@
 // word): one IMAD.HI and one IMAD per hash, a funnel shift per strand, and
 // one 16-byte store of km and one 4-byte store of em, so a warp stores 512
 // and 128 contiguous bytes.  A block is 512 threads = 128 words x 4 quads,
-// and the grid strides by whole blocks, so each thread of a reduction
-// variant always sees the same lane j % 128 and the same four rows s % 8:
-// `noout` keeps four u64 sums in registers, folds them per block in shared
-// memory and adds the block's [8][128] sums to the output with integer
-// atomics; `count` adds one count per block.  Integer sums throughout:
-// exact, and the same in any order.
+// and the grid strides by whole blocks.
 //
-// What bounds it: memory.  `full` reads 1 B per position (four u32 streams
-// per 16 positions, each word's load shared by its 4 threads through L1)
-// and writes 5 B; ~10 integer instructions per position stay far below the
-// ALU limit.  `noin` drops the reads, `noout`/`count` the writes.
+// What bounds it: memory for the variants that store the k-mer plane.
+// `full`, `nohash` and `noin` write 5 B a position and `kmonly` 4; all but
+// `noin` read 1 B (four u32 streams per 16 positions, each word's load
+// shared by its 4 threads through L1).  Their ~10 integer instructions a
+// position take less than those bytes' time.  `emonly` moves only 2 B a
+// position: it is under half of its bytes bound (PERF.md), and what holds
+// it back is not measured yet.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-enum Variant { V_FULL, V_NOHASH, V_KMONLY, V_EMONLY, V_NOIN, V_NOOUT,
-               V_COUNT };
+// front_kernel.VARIANTS; noout and count are csrc/front_reduce.cu's
+enum Variant { V_FULL, V_NOHASH, V_KMONLY, V_EMONLY, V_NOIN };
 
 constexpr int THREADS = 512;     // 128 words x 4 quads
-constexpr int ACC = 8 * 128;     // the noout accumulator
 
 __device__ __forceinline__ uint32_t hash32_hi(uint32_t a, uint32_t fl,
                                               uint32_t fh) {
@@ -55,13 +54,10 @@ front_planes_kernel(const uint32_t* __restrict__ pa,
                     const uint32_t* __restrict__ zb,
                     int64_t nq, uint32_t fl, uint32_t fh, uint32_t wmask,
                     int64_t mj, uint32_t seed,
-                    uint4* __restrict__ km, uint32_t* __restrict__ em,
-                    unsigned long long* __restrict__ acc_out) {
+                    uint4* __restrict__ km, uint32_t* __restrict__ em) {
     const int tid = threadIdx.x;
     const int q = tid & 3;                      // quad: phases 4q .. 4q+3
     const int64_t stride = (int64_t)gridDim.x * THREADS;
-    unsigned long long acc[4] = {0ull, 0ull, 0ull, 0ull};
-    unsigned cnt = 0u;
 
     for (int64_t qi = (int64_t)blockIdx.x * THREADS + tid; qi < nq;
          qi += stride) {
@@ -109,41 +105,6 @@ front_planes_kernel(const uint32_t* __restrict__ pa,
             em[qi] = (e4[0] & (k4[0] != 0u)) | ((e4[1] & (k4[1] != 0u)) << 8)
                      | ((e4[2] & (k4[2] != 0u)) << 16)
                      | ((e4[3] & (k4[3] != 0u)) << 24);
-        } else if (V == V_NOOUT) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                acc[i] += (k4[i] & 0xFFFFu) + (e4[i] << 16);
-        } else {
-            cnt += e4[0] + e4[1] + e4[2] + e4[3];
-        }
-    }
-
-    if (V == V_NOOUT) {
-        // thread tid holds lane tid >> 2, rows (4q + i) & 7: quads q and
-        // q + 2 share rows, so fold in two steps
-        __shared__ unsigned long long sh[ACC];
-        const int lane = tid >> 2;
-        if (q < 2) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) sh[(4 * q + i) * 128 + lane] = acc[i];
-        }
-        __syncthreads();
-        if (q >= 2) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                sh[(4 * (q - 2) + i) * 128 + lane] += acc[i];
-        }
-        __syncthreads();
-        for (int e = tid; e < ACC; e += THREADS) atomicAdd(acc_out + e, sh[e]);
-    } else if (V == V_COUNT) {
-        __shared__ unsigned warp_cnt[THREADS / 32];
-        cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
-        if ((tid & 31) == 0) warp_cnt[tid >> 5] = cnt;
-        __syncthreads();
-        if (tid == 0) {
-            unsigned long long t = 0ull;
-            for (int w = 0; w < THREADS / 32; ++w) t += warp_cnt[w];
-            atomicAdd(acc_out, t);
         }
     }
 }
@@ -151,13 +112,12 @@ front_planes_kernel(const uint32_t* __restrict__ pa,
 template <int V>
 void launch(const void* pa, const void* pb, const void* za, const void* zb,
             int64_t nq, uint64_t factor1, uint32_t wmask, int64_t mj,
-            uint32_t seed, int nblocks, void* km, void* em, void* acc,
+            uint32_t seed, int nblocks, void* km, void* em,
             cudaStream_t stream) {
     front_planes_kernel<V><<<nblocks, THREADS, 0, stream>>>(
         (const uint32_t*)pa, (const uint32_t*)pb, (const uint32_t*)za,
         (const uint32_t*)zb, nq, (uint32_t)factor1, (uint32_t)(factor1 >> 32),
-        wmask, mj, seed, (uint4*)km, (uint32_t*)em,
-        (unsigned long long*)acc);
+        wmask, mj, seed, (uint4*)km, (uint32_t*)em);
 }
 
 }  // namespace
@@ -165,27 +125,23 @@ void launch(const void* pa, const void* pb, const void* za, const void* zb,
 extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError().  variant indexes
-// front_kernel.VARIANTS.  nj is a multiple of mj, mj of 128; nblocks >= 1
-// (the wrapper caps it at a few blocks per SM).  km (u32 [16 nj]) and em
-// (i8 [16 nj]) are written by the variants that have them; `acc` (u64) is
-// zeroed here and receives the [8][128] sums (noout) or the count (count).
+// front_kernel.VARIANTS, up to noin (noout and count: cudaErrorInvalidValue,
+// they are mz_front_reduce's).  nj is a multiple of mj, mj of 128;
+// nblocks >= 1 (the wrapper caps it at a few blocks per SM).  km (u32
+// [16 nj]) and em (i8 [16 nj]) are written by the variants that have them.
 int mz_front_planes(const void* pa, const void* pb, const void* za,
                     const void* zb, int64_t nj, int variant, uint64_t factor1,
                     uint32_t wmask, int64_t mj, int seed, int nblocks,
-                    void* km, void* em, void* acc, void* stream) {
+                    void* km, void* em, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     const int64_t nq = 4 * nj;
     const uint32_t sd = (uint32_t)seed;
-    if (variant == V_NOOUT || variant == V_COUNT)
-        cudaMemsetAsync(acc, 0, (variant == V_NOOUT ? ACC : 1) * 8, s);
     switch (variant) {
-    case V_FULL:   launch<V_FULL>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, acc, s); break;
-    case V_NOHASH: launch<V_NOHASH>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, acc, s); break;
-    case V_KMONLY: launch<V_KMONLY>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, acc, s); break;
-    case V_EMONLY: launch<V_EMONLY>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, acc, s); break;
-    case V_NOIN:   launch<V_NOIN>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, acc, s); break;
-    case V_NOOUT:  launch<V_NOOUT>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, acc, s); break;
-    case V_COUNT:  launch<V_COUNT>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, acc, s); break;
+    case V_FULL:   launch<V_FULL>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, s); break;
+    case V_NOHASH: launch<V_NOHASH>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, s); break;
+    case V_KMONLY: launch<V_KMONLY>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, s); break;
+    case V_EMONLY: launch<V_EMONLY>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, s); break;
+    case V_NOIN:   launch<V_NOIN>(pa, pb, za, zb, nq, factor1, wmask, mj, sd, nblocks, km, em, s); break;
     default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

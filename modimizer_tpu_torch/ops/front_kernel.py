@@ -1,5 +1,7 @@
-"""The k = 16 u32 scan front and its ablations: the CUDA kernel
-``csrc/front_planes.cu`` and its plain PyTorch version.
+"""The k = 16 u32 scan front and its ablations: the CUDA kernels
+``csrc/front_planes.cu`` (the variants that store planes) and
+``csrc/front_reduce.cu`` (the read-only reductions ``noout`` and
+``count``), and their plain PyTorch version.
 
 Port of the scan-front probe kernels of the JAX package's ``scripts/``:
 ``probe_chain_time.py::kern_front``, ``probe_pallas_parts.py::kern_full``,
@@ -35,7 +37,9 @@ Variants (the probe kernels each stands for) and their outputs, a tuple:
 ``noout`` and ``count`` are exact int64.  The TPU kernels sum in f32, which
 is exact only below 2^24 (and then independent of the order of the sum): at
 the test sizes (C = 2^14) the two agree exactly; at C = 2^24 the f32 sums
-would have rounded.
+would have rounded.  Both take at most ``REDUCE_MAX_NJ`` = 2^31 words, the
+most at which front_reduce's u32 partials cannot wrap;
+``front_reduce_lanes`` runs that kernel's schedule on the CPU.
 """
 
 import ctypes
@@ -54,6 +58,19 @@ M32 = 0xFFFFFFFF
 NOIN_SEED_MUL = 2654435761
 NOIN_MULS = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
 THREADS = 512          # csrc/front_planes.cu: 128 words x 4 quads a block
+# csrc/front_reduce.cu: one word a thread, 1024 threads a block, u32 row
+# partials.  A row sum gains at most 2 x 0xFFFF a word, so a thread takes at
+# most REDUCE_MAX_WORDS words; the grid has at least REDUCE_MIN_THREADS
+# threads (reduce_grid), so NJ <= REDUCE_MAX_NJ = 2^31 words is safe.
+REDUCE_VARIANTS = ("noout", "count")
+REDUCE_THREADS = 1024
+REDUCE_MAX_WORDS = 32768
+REDUCE_MIN_THREADS = 65536
+REDUCE_MAX_NJ = REDUCE_MAX_WORDS * REDUCE_MIN_THREADS
+REDUCE_ARRIVALS = 44   # a scratch word: blocks arrived << 44 | their sum
+ACC = 8 * 128          # the noout sums, and the scratch's u64 words
+_SCRATCH = {}          # (device index, stream) -> front_reduce's scratch
+_BLOCKS_PER_SM = {}    # (device index, variant) -> the occupancy
 
 
 def u32_as_i32(x):
@@ -111,6 +128,10 @@ def _check(pa, pb, za, zb, *, factor1, w, variant, k, mj, seed):
     if mj <= 0 or mj % 128 or NJ % mj:
         raise ValueError("front_planes: mj=%d must be a positive multiple "
                          "of 128 dividing NJ=%d" % (mj, NJ))
+    if variant in REDUCE_VARIANTS and NJ > REDUCE_MAX_NJ:
+        raise ValueError("front_planes: %s takes NJ <= %d words, got %d "
+                         "(above it front_reduce's u32 partials could wrap)"
+                         % (variant, REDUCE_MAX_NJ, NJ))
     return NJ
 
 
@@ -180,26 +201,134 @@ def front_planes_ref(pa, pb, za, zb, *, factor1, w, variant, k=16, mj=4096,
     return ((part[:8] + part[8:]).contiguous(),)
 
 
+def reduce_grid(NJ: int, blocks_per_sm: int, sms: int,
+                T: int = REDUCE_THREADS) -> int:
+    """front_reduce's blocks: the blocks that the SMs hold at once, at least
+    REDUCE_MIN_THREADS threads (the u32 headroom), and no more blocks than
+    the words fill."""
+    G = max(blocks_per_sm * sms, REDUCE_MIN_THREADS // T)
+    return max(1, min(G, -(-NJ // T)))
+
+
+def front_reduce_map(NJ: int, G: int, T: int):
+    """front_reduce's map, int64 [G, T, I]: the word that thread t of block
+    b takes in iteration i, j = b T + t + i G T, or -1 past NJ."""
+    iters = max(1, -(-NJ // (G * T)))
+    j = (torch.arange(G)[:, None, None] * T + torch.arange(T)[None, :, None]
+         + torch.arange(iters)[None, None, :] * (G * T))
+    return torch.where(j < NJ, j, -1)
+
+
+def front_reduce_row(s):
+    """The row of phase s in front_reduce's partials: s and s + 8 share
+    one."""
+    return s & 7
+
+
+def front_reduce_lanes(pa, pb, za, zb, *, factor1, w, variant, G, T):
+    """noout or count by front_reduce's schedule on the CPU: words to
+    (block, thread, iteration) by ``front_reduce_map``, each thread's u32
+    row sums of km & 0xFFFF and row counts of misses (positions that do not
+    emit; rows by ``front_reduce_row``), per lane t mod 128; a row's emits
+    are twice the thread's words less its misses; noout's block fold of
+    sum + (emits << 16) to [8, 128] u64, count's u32 warp sums added per
+    block; then the blocks' total, which the scratch word holds below its
+    arrivals' bits.  Equals front_planes_ref."""
+    NJ = _check(pa, pb, za, zb, factor1=factor1, w=w, variant=variant,
+                k=16, mj=128, seed=0)
+    if variant not in REDUCE_VARIANTS:
+        raise ValueError("front_reduce_lanes: variant %r not in %s"
+                         % (variant, REDUCE_VARIANTS))
+    if G < 1 or T < 128 or T % 128:
+        raise ValueError("front_reduce_lanes: G=%d, T=%d" % (G, T))
+    if -(-NJ // (G * T)) > REDUCE_MAX_WORDS:
+        raise ValueError("front_reduce_lanes: %d words a thread, above %d"
+                         % (-(-NJ // (G * T)), REDUCE_MAX_WORDS))
+    kf, kr = funnel16(*(i32_as_u32(t) for t in (pa, pb, za, zb)))
+    km, emit = select_emit(hash32_hi(kf, factor1), hash32_hi(kr, factor1),
+                           kf, kr, w)
+    jmap = front_reduce_map(NJ, G, T)
+    took = (jmap >= 0)[..., None]                          # [G, T, I, 1]
+    jj = jmap.clamp(min=0)
+    miss = (~emit[jj] & took).to(torch.int64)              # [G, T, I, 16]
+    nw = took[..., 0].sum(dim=2)                           # words [G, T]
+    rows = front_reduce_row(torch.arange(16))
+
+    def per_row(x):         # [G, T, I, 16] -> the thread's u32 rows [G, T, 8]
+        out = torch.zeros(G, T, 8, dtype=torch.int64)
+        return out.index_add_(2, rows, x.sum(dim=2)) & M32
+
+    miss = per_row(miss)
+    if variant == "count":
+        n = (16 * nw - miss.sum(dim=2)) & M32
+        total = (n.view(G, T // 32, 32).sum(dim=2) & M32).sum()
+    else:
+        emits = 2 * nw[..., None] - miss
+        v = per_row((km & 0xFFFF)[jj] * took) + (emits << 16)  # u64 [G, T, 8]
+        block = v.view(G, T // 128, 128, 8).sum(dim=1)       # [G, 128, 8]
+        total = block.sum(dim=0).T.contiguous()
+    if int(total.max()) >> REDUCE_ARRIVALS:
+        raise ValueError("front_reduce_lanes: a total reaches the scratch "
+                         "word's arrivals")
+    return (total,)
+
+
+def _front_reduce(pa, pb, za, zb, NJ, *, factor1, w, variant):
+    """Launch csrc/front_reduce.cu on CUDA tensors: one kernel, no memset;
+    the scratch it finds and leaves zero is this (device, stream)'s."""
+    L = _build.lib()
+    dev = pa.device
+    with torch.cuda.device(dev):
+        key = (dev.index, variant)
+        if key not in _BLOCKS_PER_SM:
+            n = ctypes.c_int(0)
+            _build.check(L.mz_front_reduce_blocks_per_sm(
+                VARIANTS.index(variant), ctypes.byref(n)), "front_reduce")
+            if n.value < 1:
+                raise RuntimeError("front_reduce: no block fits on an SM")
+            _BLOCKS_PER_SM[key] = n.value
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        G = reduce_grid(NJ, _BLOCKS_PER_SM[key], sms)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _SCRATCH.get((dev.index, stream))
+        if scratch is None:     # 1,024 words: arrivals << 44 | sum
+            scratch = torch.zeros(ACC, dtype=torch.int64, device=dev)
+            _SCRATCH[(dev.index, stream)] = scratch
+        out = torch.empty((8, 128) if variant == "noout" else (),
+                          dtype=torch.int64, device=dev)
+        rc = L.mz_front_reduce(
+            pa.data_ptr(), pb.data_ptr(), za.data_ptr(), zb.data_ptr(), NJ,
+            VARIANTS.index(variant), ctypes.c_uint64(factor1),
+            ctypes.c_uint32(w - 1), G, scratch.data_ptr(), out.data_ptr(),
+            stream)
+    _build.check(rc, "front_reduce")
+    _build.LAUNCHES["front_reduce"] += 1
+    return (out,)
+
+
 def front_planes(pa, pb, za, zb, *, factor1, w, variant, k=16, mj=4096,
                  seed=0):
     """The front over four int32 streams [NJ]: launches
-    csrc/front_planes.cu for CUDA tensors, runs front_planes_ref for CPU
-    tensors.  Returns the variant's tuple of outputs on pa's device."""
+    csrc/front_reduce.cu (noout, count) or csrc/front_planes.cu (the other
+    variants) for CUDA tensors, runs front_planes_ref for CPU tensors.
+    Returns the variant's tuple of outputs on pa's device."""
     if pa.device.type == "cpu":
         return front_planes_ref(pa, pb, za, zb, factor1=factor1, w=w,
                                 variant=variant, k=k, mj=mj, seed=seed)
-    if pa.device.type != "cuda":
-        raise ValueError("front_planes: unsupported device %s" % pa.device)
     NJ = _check(pa, pb, za, zb, factor1=factor1, w=w, variant=variant, k=k,
                 mj=mj, seed=seed)
+    if pa.device.type != "cuda":
+        raise ValueError("front_planes: unsupported device %s" % pa.device)
+    if variant in REDUCE_VARIANTS:
+        return _front_reduce(pa, pb, za, zb, NJ, factor1=factor1, w=w,
+                             variant=variant)
     L = _build.lib()
     dev = pa.device
     C = 16 * NJ
     nq = C // 4
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nblocks = min((nq + THREADS - 1) // THREADS, 4 * sms)
-    shapes = {"km": ((C,), torch.int32), "em": ((C,), torch.int8),
-              "acc": ((8, 128) if variant == "noout" else (), torch.int64)}
+    shapes = {"km": ((C,), torch.int32), "em": ((C,), torch.int8)}
     out = {n: torch.empty(shapes[n][0], dtype=shapes[n][1], device=dev)
            for n in OUTPUTS[variant]}
 
@@ -212,7 +341,7 @@ def front_planes(pa, pb, za, zb, *, factor1, w, variant, k=16, mj=4096,
             pa.data_ptr(), pb.data_ptr(), za.data_ptr(), zb.data_ptr(), NJ,
             VARIANTS.index(variant), ctypes.c_uint64(factor1),
             ctypes.c_uint32(w - 1), mj, seed, nblocks, ptr("km"), ptr("em"),
-            ptr("acc"), stream)
+            stream)
     _build.check(rc, "front_planes")
     _build.LAUNCHES["front_planes"] += 1
     return tuple(out[n] for n in OUTPUTS[variant])

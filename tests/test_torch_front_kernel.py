@@ -1,8 +1,11 @@
-"""front_planes_ref (the plain PyTorch version of csrc/front_planes.cu) vs
-the JAX package's scan-front probes: bit for bit against each Pallas probe
-kernel run in interpret mode with the script's own BlockSpecs, and against
-the XLA front ``_scan_front_u32`` + ``mod_is_zero``.  The CUDA kernel itself
-is held against front_planes_ref on the card by chip_smoke.py."""
+"""front_planes_ref (the plain PyTorch version of csrc/front_planes.cu and
+csrc/front_reduce.cu) vs the JAX package's scan-front probes: bit for bit
+against each Pallas probe kernel run in interpret mode with the script's own
+BlockSpecs, and against the XLA front ``_scan_front_u32`` + ``mod_is_zero``.
+front_reduce's schedule (``front_reduce_lanes``: its map of words to
+threads, its u32 rows, its folds) is rehearsed against both, with its u32
+headroom and two mutated maps.  The CUDA kernels themselves are held
+against front_planes_ref on the card by chip_smoke.py."""
 
 import functools
 import importlib.util
@@ -26,8 +29,11 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from modimizer_tpu.core.seqhash import Seqhash  # noqa: E402
 from modimizer_tpu.ops.packed import mod_is_zero, pack_sw  # noqa: E402
 from modimizer_tpu.parallel.sharded import _scan_front_u32  # noqa: E402
+from modimizer_tpu_torch.ops import front_kernel  # noqa: E402
 from modimizer_tpu_torch.ops.front_kernel import (  # noqa: E402
-    VARIANTS, front_planes, front_planes_ref, make_streams)
+    REDUCE_MAX_NJ, REDUCE_MAX_WORDS, REDUCE_MIN_THREADS, REDUCE_THREADS,
+    VARIANTS, front_planes, front_planes_ref, front_reduce_lanes,
+    front_reduce_map, make_streams, reduce_grid)
 
 REPO = Path(__file__).resolve().parent.parent
 C_LOG2, MJ = 14, 256
@@ -291,3 +297,156 @@ def test_contract_refused(bad):
     args.update(bad)
     with pytest.raises(ValueError):
         front_planes(*st, **args)
+
+
+# ---- front_reduce's schedule (csrc/front_reduce.cu), rehearsed on the CPU
+
+REDUCE_NJ = [128, 384, 4096, 1 << 16]
+# (blocks, threads): one block, an odd grid of smaller blocks, the H100's
+# SMs at one and two blocks each (grids larger than the work at small NJ)
+REDUCE_GRIDS = [(1, 1024), (7, 512), (132, 1024), (264, 1024)]
+
+
+def random_streams(NJ, seed):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, 16 * NJ + K - 1).astype(np.uint8)
+    sw = pack_sw(codes, NJ // 2 + 2)
+    return make_streams(torch.from_numpy(sw.view(np.int64)), NJ)
+
+
+@pytest.mark.parametrize("NJ", REDUCE_NJ)
+@pytest.mark.parametrize("G,T", REDUCE_GRIDS)
+def test_front_reduce_map_takes_each_word_once(NJ, G, T):
+    j = front_reduce_map(NJ, G, T)
+    took = j >= 0
+    assert torch.equal(j[took].sort().values, torch.arange(NJ))
+    t = torch.arange(T)[None, :, None].expand_as(j)
+    assert torch.equal(j[took] % 128, t[took] % 128)
+
+
+@pytest.mark.parametrize("NJ", REDUCE_NJ)
+@pytest.mark.parametrize("G,T", REDUCE_GRIDS)
+def test_front_reduce_lanes_equal_ref(NJ, G, T):
+    st = random_streams(NJ, NJ + G)
+    for w in (2, 16, 64):
+        f1 = Seqhash.create(K, w, 17).factor1
+        for v in ("noout", "count"):
+            got = front_reduce_lanes(*st, factor1=f1, w=w, variant=v, G=G,
+                                     T=T)
+            want = front_planes_ref(*st, factor1=f1, w=w, variant=v, mj=128)
+            assert got[0].dtype == torch.int64
+            assert got[0].shape == want[0].shape
+            assert torch.equal(got[0], want[0]), (w, v)
+
+
+def script_reductions(parts, pfront, sw, sh, w):
+    """kern_noout's [8, 128] and timing_kernel's count in interpret mode,
+    as exact integers (their f32 sums are exact below 2^24)."""
+    acc_spec = pl.BlockSpec((8, 128), lambda g: (g * 0, g * 0),
+                            memory_space=pltpu.VMEM)
+    kern = functools.partial(parts.kern_noout, factor1=sh.factor1, w=w)
+    acc = np.asarray(pallas(kern, jax_streams(parts, sw), out_specs=acc_spec,
+                            out_shape=jax.ShapeDtypeStruct((8, 128),
+                                                           jnp.float32)))
+    kern = functools.partial(pfront.timing_kernel, factor1=sh.factor1, w=w)
+    P, Z = pfront.make_streams(jnp.asarray(sw))
+    args = tuple(x.reshape(1, NJ)
+                 for x in (P[:NJ], P[1:NJ + 1], Z[:NJ], Z[1:NJ + 1]))
+    smem = pl.BlockSpec((1, 1), lambda g: (g * 0, g * 0),
+                        memory_space=pltpu.SMEM)
+    n = pallas(kern, args, out_specs=smem,
+               out_shape=jax.ShapeDtypeStruct((1, 1), jnp.float32))
+    assert float(acc.max()) < 2 ** 24
+    return acc.astype(np.int64), int(np.asarray(n)[0, 0])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("w", [2, 16, 64])
+def test_front_reduce_lanes_equal_scripts(parts, pfront, seed, w):
+    sh = Seqhash.create(K, w, 17)
+    sw = seeded_sw(50 + seed)
+    acc_want, n_want = script_reductions(parts, pfront, sw, sh, w)
+    st = torch_streams(sw)
+    for G, T in REDUCE_GRIDS:
+        args = dict(factor1=sh.factor1, w=w, G=G, T=T)
+        (acc,) = front_reduce_lanes(*st, variant="noout", **args)
+        (n,) = front_reduce_lanes(*st, variant="count", **args)
+        assert np.array_equal(acc.numpy(), acc_want), (G, T)
+        assert int(n) == n_want, (G, T)
+    (acc,) = port(sw, sh, w, "noout")
+    (n,) = port(sw, sh, w, "count")
+    assert np.array_equal(acc.numpy(), acc_want) and int(n) == n_want
+
+
+def test_front_reduce_u32_headroom():
+    """A thread's u32 row sum gains at most 2 x 0xFFFF a word: MAX_WORDS
+    words fit and one more could wrap; the grid's least thread count takes
+    the wrapper's largest NJ within MAX_WORDS words a thread, and C = 2^30
+    (the probes' widest input) is far inside it."""
+    gain = 2 * 0xFFFF
+    assert REDUCE_MAX_WORDS * gain <= 2 ** 32 - 1
+    assert (REDUCE_MAX_WORDS + 1) * gain > 2 ** 32 - 1
+    assert 16 * REDUCE_MAX_WORDS * REDUCE_THREADS < 2 ** 32  # count, a block
+    assert REDUCE_MAX_NJ == REDUCE_MAX_WORDS * REDUCE_MIN_THREADS == 2 ** 31
+    assert (1 << 30) // 16 * 32 == REDUCE_MAX_NJ
+    for bps, sms in ((1, 1), (1, 132), (2, 132), (1, 16), (3, 7)):
+        for nj in (128, 1 << 20, REDUCE_MAX_NJ - 128, REDUCE_MAX_NJ):
+            G = reduce_grid(nj, bps, sms)
+            assert 1 <= G <= -(-nj // REDUCE_THREADS)
+            assert -(-nj // (G * REDUCE_THREADS)) <= REDUCE_MAX_WORDS
+    assert reduce_grid(1 << 20, 1, 132) == 132
+    assert reduce_grid(1 << 20, 2, 132) == 264
+    assert reduce_grid(128, 2, 132) == 1
+
+
+def meta_streams(NJ):
+    return tuple(torch.empty(NJ, dtype=torch.int32, device="meta")
+                 for _ in range(4))
+
+
+@pytest.mark.parametrize("variant", ["noout", "count"])
+def test_front_reduce_refused_above_headroom(variant):
+    args = dict(factor1=Seqhash.create(K, 16, 17).factor1, w=16,
+                variant=variant, mj=4096)
+    over = meta_streams(REDUCE_MAX_NJ + 4096)
+    for fn in (front_planes, front_planes_ref):
+        with pytest.raises(ValueError, match="could wrap"):
+            fn(*over, **args)
+    # at the limit the wrapper gets past the check (and on to the device)
+    with pytest.raises(ValueError, match="unsupported device"):
+        front_planes(*meta_streams(REDUCE_MAX_NJ), **args)
+    # a grid whose threads would take more than MAX_WORDS words
+    del args["mj"]
+    with pytest.raises(ValueError, match="words a thread"):
+        front_reduce_lanes(*meta_streams(REDUCE_MAX_WORDS * 128 + 128),
+                           G=1, T=128, **args)
+
+
+def _map_stride_off_128(NJ, G, T):
+    """Each block's first T - 64 threads take the words of a grid of
+    G (T - 64): every word once, but the stride is not a multiple of 128."""
+    j = front_reduce_map(NJ, G, T - 64)
+    pad = torch.full((G, 64, j.shape[2]), -1, dtype=torch.int64)
+    return torch.cat([j, pad], dim=1)
+
+
+@pytest.mark.parametrize("mutant", ["stride", "row"])
+def test_front_reduce_mutated_map_fails(monkeypatch, mutant):
+    """noout's lanes and rows are where a wrong map shows (count's total
+    does not depend on them)."""
+    st = random_streams(4096, 60)
+    f1 = Seqhash.create(K, 16, 17).factor1
+    G, T = 7, 512
+    if mutant == "stride":
+        j = _map_stride_off_128(4096, G, T)
+        assert torch.equal(j[j >= 0].sort().values, torch.arange(4096))
+        monkeypatch.setattr(front_kernel, "front_reduce_map",
+                            _map_stride_off_128)
+    else:       # phase s + 8 folded into row s + 1
+        monkeypatch.setattr(front_kernel, "front_reduce_row",
+                            lambda s: (s + (s >> 3)) & 7)
+    (got,) = front_reduce_lanes(*st, factor1=f1, w=16, variant="noout",
+                                G=G, T=T)
+    (want,) = front_planes_ref(*st, factor1=f1, w=16, variant="noout",
+                               mj=128)
+    assert not torch.equal(got, want)

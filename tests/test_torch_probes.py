@@ -105,7 +105,9 @@ def test_tpu_only_backend_exits_nonzero(name):
     (probe_pallas_parts, ["14", MJ, "full,bogus"]),
     (probe_front_mxu, ["14", MJ, "mxu2"]),
     (probe_front, ["rot"]),
-    (probe_pallas_parts, ["14", "4096"])])
+    (probe_pallas_parts, ["14", "4096"]),
+    (probe_pallas_parts, ["14", MJ, "noout", "--baseline", "old.cu"]),
+    (probe_pallas_front, ["14", MJ, "--baseline", "old.cu"])])
 def test_bad_arguments_exit_nonzero(mod, argv):
     with pytest.raises(SystemExit) as e:
         mod.main(argv, device="cpu")
@@ -145,3 +147,46 @@ def test_probes_never_import_jax():
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NO_JAX_OK" in r.stderr
     assert "usage: probe_pallas_parts" in r.stdout
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _Z3fooPj
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+    /*0000*/   LDC R1, c[0x0][0x28] ;  /* 0x00000a00ff017b82 */
+                                 /* 0x000fe20000000800 */
+    /*0010*/   S2R R0, SR_TID.X ;  /* 0x0000000000007919 */
+.L_x_1:
+    /*0020*/   IMAD.HI.U32 R2, R0, R3, RZ ;  /* 0x0000000300027227 */
+    /*0030*/   IMAD R2, R0, R3, R2 ;  /* 0x0000000300027224 */
+    /*0040*/   SHF.L.U32 R4, R2, 0x2, RZ ;  /* 0x0000000202047819 */
+    /*0050*/   @P0 BRA `(.L_x_1) ;  /* 0xfffffffc00000947 */
+    /*0060*/   EXIT ;  /* 0x000000000000794d */
+.L_x_2:
+    /*0070*/   BRA `(.L_x_2);  /* 0xfffffffc00fc7947 */
+    /*0080*/   NOP;  /* 0x0000000000007918 */
+"""
+_PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooPj' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 12 registers, 352 bytes cmem[0]
+"""
+
+
+def test_sass_count_parses_loops():
+    from modimizer_tpu_torch.probes import sass_count
+    kernels, labels = sass_count.parse(_SASS)
+    insns = kernels["_Z3fooPj"]
+    assert [o for _a, o, _t in insns] == [
+        "LDC", "S2R", "IMAD.HI", "IMAD", "SHF", "BRA", "EXIT", "BRA", "NOP"]
+    (start, end, ops), = sass_count.loops(insns, labels["_Z3fooPj"])
+    assert (start, end) == (0x20, 0x50)
+    assert ops == ["IMAD.HI", "IMAD", "SHF", "BRA"]
+    # a cubin's listing names branch targets by address
+    kernels, labels = sass_count.parse(_SASS.replace("`(.L_x_1)", "0x20"))
+    (start, end, _ops), = sass_count.loops(kernels["_Z3fooPj"], {})
+    assert (start, end) == (0x20, 0x50)
+    info = sass_count.ptxas_info(_PTXAS)
+    assert info["_Z3fooPj"][-1] == "Used 12 registers, 352 bytes cmem[0]"
+    assert "0 bytes spill stores" in info["_Z3fooPj"][1]
