@@ -110,19 +110,19 @@ def nvidia_smi_line():
 
 # ---------------------------------------------------------------- inputs
 
-def random_chunk(rng, C, k, poly_a=False):
+def random_chunk(rng, C, k, poly_a=False, poly_t=False):
     """(sw, vbits) int64 CUDA tensors for one chunk of C positions: random
-    bases (or all A) packed by the native packer, read-boundary validity
-    from random read lengths."""
+    bases (or all A, or all T) packed by the native packer, read-boundary
+    validity from random read lengths (one read for all A or all T)."""
     import numpy as np
     import torch
     from modimizer_tpu_torch.native import lib as native_lib
     n = C + k - 1
-    codes = (np.zeros(n, np.uint8) if poly_a
+    codes = (np.full(n, 3 if poly_t else 0, np.uint8) if poly_a or poly_t
              else rng.integers(0, 4, n).astype(np.uint8))
     sw = np.empty(C // 32 + 2, np.uint64)
     native_lib().pk_pack2(codes, n, sw, len(sw))
-    if poly_a:
+    if poly_a or poly_t:
         offsets = np.array([0, n], np.int64)
     else:
         lens = rng.integers(50, 2000, n // 50 + 2)
@@ -362,13 +362,17 @@ def check_front_kernels(small, rng, report):
     """The probe kernels against their plain versions on the card, bit for
     bit: every front_planes and front_reduce variant and front_mma at C =
     2^15 and 2^24 for each w in FRONT_W, front_mma also at NJ = 128 and 384
-    words (blocks with idle warps), front_reduce also at NJ = 128 and 384
-    (blocks with idle threads), at C = 2^27 (many words a thread), on a
-    poly-A chunk (every position emits), three calls in a row and calls
-    alternated on two streams (its scratch left zero for the next), every
-    front_ops op on C elements after each number of passes, 1 to 16 (one
-    kernel instance each); then each timed beside its plain version at the
-    probes' default shapes, the front_ops copy in turns with x.clone()."""
+    words (blocks with idle warps), front_reduce and front_planes' emonly
+    also at NJ = 128 and 384 (blocks with idle threads) and on a poly-A
+    chunk (every position emits; emonly: no k-mer but 0, so em is all 0),
+    emonly also on a poly-T chunk (em all 0) and on four independent random
+    streams (pb is not pa shifted by a word), front_reduce also at C = 2^27
+    (many words a thread), three calls in a row and calls alternated on two
+    streams (its scratch left zero for the next), every front_ops op on C
+    elements after each number of passes, 1 to 16 (one kernel instance
+    each); then each timed beside its plain version at the probes' default
+    shapes, every front_planes variant at 2^24 with its bound, the
+    front_ops copy in turns with x.clone()."""
     import numpy as np
     import torch
     from modimizer_tpu_torch.core.seqhash import Seqhash
@@ -384,7 +388,7 @@ def check_front_kernels(small, rng, report):
     sizes = [1 << 15] if small else [1 << 15, 1 << 24]
     errs = dict.fromkeys(FRONT_KERNELS, 0.0)
     n_cases = 0
-    reduce_cases = []
+    reduce_cases, emit_cases = [], []
 
     def check(name, got, want, tag):
         nonlocal n_cases
@@ -407,6 +411,19 @@ def check_front_kernels(small, rng, report):
                       front_planes_ref(*st, **args),
                       "%s w=%d %s" % (tag, w, v))
         reduce_cases.append(tag)
+
+    def check_emit(st, tag):
+        """emonly on st; returns its em's sum (poly chunks: 0)."""
+        n = 0
+        for w in FRONT_W:
+            args = dict(factor1=Seqhash.create(16, w, SEED).factor1, w=w,
+                        variant="emonly", mj=128)
+            got = front_planes(*st, **args)
+            check("front_planes", got, front_planes_ref(*st, **args),
+                  "%s w=%d emonly" % (tag, w))
+            n += int(got[0].sum())
+        emit_cases.append(tag)
+        return n
 
     for C in sizes:
         NJ = C // 16
@@ -437,16 +454,31 @@ def check_front_kernels(small, rng, report):
                   front_mma_ref(*st, factor1=f1, w=w),
                   "NJ=%d w=%d" % (NJ, w))
     for NJ in REDUCE_TAIL_NJ:
-        check_reduce(make_streams(random_chunk(rng, 16 * NJ, 16)[0], NJ),
-                     "NJ=%d" % NJ)
+        st = make_streams(random_chunk(rng, 16 * NJ, 16)[0], NJ)
+        check_reduce(st, "NJ=%d" % NJ)
+        check_emit(st, "NJ=%d" % NJ)
     C = REDUCE_WIDE_C
     check_reduce(make_streams(random_chunk(rng, C, 16)[0], C // 16),
                  "C=2^%d" % (C.bit_length() - 1), ws=(16,), mj=4096)
     C = sizes[-1]
-    check_reduce(make_streams(random_chunk(rng, C, 16, poly_a=True)[0],
-                              C // 16),
-                 "poly-A C=2^%d" % (C.bit_length() - 1),
-                 mj=min(4096, C // 16))
+    c_tag = "C=2^%d" % (C.bit_length() - 1)
+    for poly in ("poly_a", "poly_t"):
+        st = make_streams(random_chunk(rng, C, 16, **{poly: True})[0],
+                          C // 16)
+        if poly == "poly_a":
+            check_reduce(st, "poly-A " + c_tag, mj=min(4096, C // 16))
+        # every position emits and its k-mer is 0: em must be all 0
+        n_emit = front_planes(*st, factor1=Seqhash.create(16, 16, SEED)
+                              .factor1, w=16, variant="count", mj=128)[0]
+        if int(n_emit) != C or check_emit(st, poly + " " + c_tag):
+            fail("%s: %d emits of %d, or an em byte set" % (poly,
+                                                            int(n_emit), C))
+    # four independent streams: a kernel that took pb[j] for pa[j + 1]
+    # would agree with the plain version on make_streams' streams
+    st = tuple(torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, C // 16,
+                                             dtype=np.int64)
+                                .astype(np.int32)).cuda() for _ in range(4))
+    check_emit(st, "independent " + c_tag)
     # the scratch each launch leaves zero for the next: three calls in a
     # row, then calls alternated on two streams (each its own scratch)
     st = make_streams(random_chunk(rng, C, 16)[0], C // 16)
@@ -469,7 +501,8 @@ def check_front_kernels(small, rng, report):
     say({"phase": "front_kernels", "cases": n_cases, "sizes": sizes,
          "w": list(FRONT_W), "variants": list(VARIANTS), "ops": list(OPS),
          "front_mma_tail_nj": list(MMA_TAIL_NJ),
-         "front_reduce_cases": reduce_cases, "max_abs_err": errs})
+         "front_reduce_cases": reduce_cases,
+         "front_planes_emonly_cases": emit_cases, "max_abs_err": errs})
 
     # times at the probes' default shapes: C = 2^24 (k16 w16, "full"), and
     # u32 [8, 128, 1024] for the micro-ops (each op, 16 passes as the
@@ -495,8 +528,17 @@ def check_front_kernels(small, rng, report):
     red_t = {v: (device_ms(lambda: front_planes(*st, **a), 20)[0],
                  device_ms(lambda: front_planes_ref(*st, **a), 3, 1)[0])
              for v, a in red.items()}
+    # every planes variant: its time and its bound (noin reads nothing)
+    pl_ms, pl_bound = {}, {}
+    for v in VARIANTS:
+        if v in REDUCE_VARIANTS:
+            continue
+        a = dict(full, variant=v)
+        pl_ms[v] = device_ms(lambda: front_planes(*st, **a), 20)[0]
+        pl_bound[v] = bound_ms(nbytes(*(() if v == "noin" else st),
+                                      *front_planes(*st, **a)))[0]
     t = {"front_planes": (
-            device_ms(lambda: front_planes(*st, **full), 20)[0],
+            pl_ms["full"],
             device_ms(lambda: front_planes_ref(*st, **full), 3, 1)[0]),
          "front_mma": (
             device_ms(lambda: front_mma(*st, factor1=f1, w=16), 20)[0],
@@ -535,9 +577,14 @@ def check_front_kernels(small, rng, report):
     report["front_reduce"].update(
         ms_by_variant={v: m[0] for v, m in red_t.items()},
         plain_ms_by_variant={v: m[1] for v, m in red_t.items()})
+    report["front_planes"].update(
+        ms_by_variant=pl_ms, bound_ms_by_variant=pl_bound,
+        bound_share_by_variant={v: pl_bound[v] / m for v, m in pl_ms.items()},
+        card=nvidia_smi_line())
     say({"phase": "front_kernel_times", "timed": timed,
          "ms": {n: v[0] for n, v in t.items()}, "front_ops_ms": ops_ms,
          "front_reduce_ms": {v: m[0] for v, m in red_t.items()},
+         "front_planes_ms": pl_ms,
          "copy_clone_turns_ms": turns,
          "plain_ms": {n: v[1] for n, v in t.items()},
          "card": nvidia_smi_line()})

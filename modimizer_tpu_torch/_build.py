@@ -177,6 +177,8 @@ def _declare(L):
         i64, i32, i32,         # mj, seed, nblocks
         p, p,                  # km, em
         p]                     # stream
+    L.mz_front_emit_blocks_per_sm.restype = ctypes.c_int
+    L.mz_front_emit_blocks_per_sm.argtypes = [p]          # &blocks
     L.mz_front_reduce_blocks_per_sm.restype = ctypes.c_int
     L.mz_front_reduce_blocks_per_sm.argtypes = [i32, p]   # variant, &blocks
     L.mz_front_reduce.restype = ctypes.c_int

@@ -34,7 +34,9 @@ Variants (the probe kernels each stands for) and their outputs, a tuple:
           {r, r + 8} and j = lane (mod 128)                   (acc int64 [8, 128],)
   count   timing_kernel: the number of emits                 (n int64 [],)
 
-``noout`` and ``count`` are exact int64.  The TPU kernels sum in f32, which
+``emonly`` is csrc/front_planes.cu's ``front_emit_kernel``, a word a
+thread; ``front_emit_lanes`` runs its schedule on the CPU.  ``noout`` and
+``count`` are exact int64.  The TPU kernels sum in f32, which
 is exact only below 2^24 (and then independent of the order of the sum): at
 the test sizes (C = 2^14) the two agree exactly; at C = 2^24 the f32 sums
 would have rounded.  Both take at most ``REDUCE_MAX_NJ`` = 2^31 words, the
@@ -58,6 +60,9 @@ M32 = 0xFFFFFFFF
 NOIN_SEED_MUL = 2654435761
 NOIN_MULS = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
 THREADS = 512          # csrc/front_planes.cu: 128 words x 4 quads a block
+# its emonly kernel: one word a thread, EMIT_WORDS words loaded before a hash
+EMIT_THREADS = 256
+EMIT_WORDS = 2
 # csrc/front_reduce.cu: one word a thread, 1024 threads a block, u32 row
 # partials.  A row sum gains at most 2 x 0xFFFF a word, so a thread takes at
 # most REDUCE_MAX_WORDS words; the grid has at least REDUCE_MIN_THREADS
@@ -273,22 +278,83 @@ def front_reduce_lanes(pa, pb, za, zb, *, factor1, w, variant, G, T):
     return (total,)
 
 
+def emit_grid(NJ: int, blocks_per_sm: int, sms: int,
+              T: int = EMIT_THREADS) -> int:
+    """front_emit_kernel's blocks: the blocks that the SMs hold at once, and
+    no more than the words fill (a word a thread)."""
+    return max(1, min(blocks_per_sm * sms, -(-NJ // T)))
+
+
+def front_emit_map(NJ: int, G: int, T: int, U: int):
+    """front_emit_kernel's map, int64 [G, T, B, U]: front_reduce_map's words
+    in batches of U, j = b T + t + (i U + u) G T for slot u of batch i, or
+    -1 past NJ (the last batch's guarded words)."""
+    j = front_reduce_map(NJ, G, T)
+    return torch.nn.functional.pad(j, (0, -j.shape[2] % U),
+                                   value=-1).view(G, T, -1, U)
+
+
+def front_emit_loads(pa, pb, za, zb, j):
+    """The four words that word j reads: pa[j], pb[j], za[j], zb[j]."""
+    return pa[j], pb[j], za[j], zb[j]
+
+
+def front_emit_pack(em):
+    """[..., 16] 0/1 -> [..., 4] u32 in int64: phase s is byte s & 3 of
+    word s >> 2, little-endian, as one uint4 stores them."""
+    b = em.to(torch.int64).reshape(*em.shape[:-1], 4, 4)
+    return (b << (8 * torch.arange(4))).sum(dim=-1)
+
+
+def front_emit_lanes(pa, pb, za, zb, *, factor1, w, G, T, U):
+    """emonly by front_emit_kernel's schedule on the CPU: words to (block,
+    thread, batch, slot) by ``front_emit_map``, each word's four loads by
+    ``front_emit_loads``, its 16 phases, packed by ``front_emit_pack`` into
+    4 u32 and stored at em + 16 j; the bytes as a little-endian card holds
+    them.  Equals front_planes_ref."""
+    NJ = _check(pa, pb, za, zb, factor1=factor1, w=w, variant="emonly",
+                k=16, mj=128, seed=0)
+    if G < 1 or T < 32 or T % 32 or U < 1:
+        raise ValueError("front_emit_lanes: G=%d, T=%d, U=%d" % (G, T, U))
+    jmap = front_emit_map(NJ, G, T, U)
+    j = jmap[jmap >= 0]                 # in (block, thread, batch, slot) order
+    words = front_emit_loads(*(i32_as_u32(t) for t in (pa, pb, za, zb)), j)
+    kf, kr = funnel16(*words)
+    km, emit = select_emit(hash32_hi(kf, factor1), hash32_hi(kr, factor1),
+                           kf, kr, w)
+    out = torch.full((NJ, 4), -1, dtype=torch.int64)
+    out[j] = front_emit_pack(emit & (km != 0))
+    if bool((out < 0).any()):
+        raise ValueError("front_emit_lanes: a word was not stored")
+    em = (out[..., None] >> (8 * torch.arange(4))) & 0xFF   # [NJ, 4, 4]
+    return (em.reshape(-1).to(torch.int8),)
+
+
+def _blocks_per_sm(dev, variant, query):
+    """The blocks of ``variant``'s kernel that one SM holds at once
+    (``query(&n)`` fills n), cached per device."""
+    key = (dev.index, variant)
+    if key not in _BLOCKS_PER_SM:
+        what = ("front_reduce" if variant in REDUCE_VARIANTS
+                else "front_planes")
+        n = ctypes.c_int(0)
+        _build.check(query(ctypes.byref(n)), what)
+        if n.value < 1:
+            raise RuntimeError("%s: no block fits on an SM" % what)
+        _BLOCKS_PER_SM[key] = n.value
+    return _BLOCKS_PER_SM[key]
+
+
 def _front_reduce(pa, pb, za, zb, NJ, *, factor1, w, variant):
     """Launch csrc/front_reduce.cu on CUDA tensors: one kernel, no memset;
     the scratch it finds and leaves zero is this (device, stream)'s."""
     L = _build.lib()
     dev = pa.device
     with torch.cuda.device(dev):
-        key = (dev.index, variant)
-        if key not in _BLOCKS_PER_SM:
-            n = ctypes.c_int(0)
-            _build.check(L.mz_front_reduce_blocks_per_sm(
-                VARIANTS.index(variant), ctypes.byref(n)), "front_reduce")
-            if n.value < 1:
-                raise RuntimeError("front_reduce: no block fits on an SM")
-            _BLOCKS_PER_SM[key] = n.value
+        bps = _blocks_per_sm(dev, variant, lambda n: (
+            L.mz_front_reduce_blocks_per_sm(VARIANTS.index(variant), n)))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        G = reduce_grid(NJ, _BLOCKS_PER_SM[key], sms)
+        G = reduce_grid(NJ, bps, sms)
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = _SCRATCH.get((dev.index, stream))
         if scratch is None:     # 1,024 words: arrivals << 44 | sum
@@ -310,7 +376,8 @@ def front_planes(pa, pb, za, zb, *, factor1, w, variant, k=16, mj=4096,
                  seed=0):
     """The front over four int32 streams [NJ]: launches
     csrc/front_reduce.cu (noout, count) or csrc/front_planes.cu (the other
-    variants) for CUDA tensors, runs front_planes_ref for CPU tensors.
+    variants; emonly on emit_grid's blocks) for CUDA tensors, runs
+    front_planes_ref for CPU tensors.
     Returns the variant's tuple of outputs on pa's device."""
     if pa.device.type == "cpu":
         return front_planes_ref(pa, pb, za, zb, factor1=factor1, w=w,
@@ -327,7 +394,12 @@ def front_planes(pa, pb, za, zb, *, factor1, w, variant, k=16, mj=4096,
     C = 16 * NJ
     nq = C // 4
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblocks = min((nq + THREADS - 1) // THREADS, 4 * sms)
+    if variant == "emonly":
+        with torch.cuda.device(dev):
+            nblocks = emit_grid(NJ, _blocks_per_sm(
+                dev, variant, L.mz_front_emit_blocks_per_sm), sms)
+    else:
+        nblocks = min((nq + THREADS - 1) // THREADS, 4 * sms)
     shapes = {"km": ((C,), torch.int32), "em": ((C,), torch.int8)}
     out = {n: torch.empty(shapes[n][0], dtype=shapes[n][1], device=dev)
            for n in OUTPUTS[variant]}

@@ -11,8 +11,10 @@ sizes can take longer than the kernel); the host's enqueue time per call is
 reported beside it.  The sleep lasts at least ``MIN_SLEEP_S``: the host
 shares its cores, and the timed calls' enqueue has been seen to take ten
 times the warm-up's, which a sleep sized from the warm-up alone does not
-cover.  A CPU run times nothing: its lines say ``"device": "cpu"`` and
-carry no times.
+cover.  ``cold=True`` writes a buffer of twice the card's L2 before each
+launch, outside the events, so that the launch finds none of its inputs in
+L2 (the buffer's dirty lines are written back while it runs).  A CPU run
+times nothing: its lines say ``"device": "cpu"`` and carry no times.
 """
 
 import json
@@ -27,6 +29,7 @@ MIN_SLEEP_S = 0.05
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W power limit)
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12   # dense int8 tensor-core operations
+_FLUSH = {}            # device index -> the cold-L2 buffer
 
 
 def nbytes(*tensors):
@@ -44,11 +47,23 @@ def bound_ms(n_bytes, int8_ops=0):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def time_ms(fn, reps=20, warmup=3):
+def flush_buffer():
+    """A uint8 buffer of twice the current card's L2, kept per device."""
+    dev = torch.cuda.current_device()
+    if dev not in _FLUSH:
+        n = 2 * torch.cuda.get_device_properties(dev).L2_cache_size
+        _FLUSH[dev] = torch.empty(n, dtype=torch.uint8, device="cuda")
+    return _FLUSH[dev]
+
+
+def time_ms(fn, reps=20, warmup=3, cold=False):
     """(median device ms of ``fn()`` over ``reps`` launches, mean host ms
-    to enqueue one call)."""
+    to enqueue one call); with ``cold``, each launch after a write of twice
+    the L2 (``flush_buffer``), outside its events."""
+    flush = flush_buffer().zero_ if cold else (lambda: None)
     h0 = time.perf_counter()
     for _ in range(warmup):
+        flush()
         fn()
     host = (time.perf_counter() - h0) / max(1, warmup)
     torch.cuda.synchronize()
@@ -59,6 +74,7 @@ def time_ms(fn, reps=20, warmup=3):
     for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
+        flush()
         t0.record()
         fn()
         t1.record()
@@ -86,14 +102,16 @@ def same(got, want):
 
 
 def report(line, fn, plain, *, device, work, unit="mpos_s", reps=20,
-           warmup=3, plain_reps=3, check=True, reads=(), int8_ops=0):
+           warmup=3, plain_reps=3, check=True, reads=(), int8_ops=0,
+           cold=False):
     """Hold ``fn()`` against ``plain()`` (unless ``check`` is False: then
     ``fn`` is the plain version), time both on the card, print ``line``
     completed with the results, and return whether the check passed.
     ``work`` is the number of positions (or elements) per call, and
     ``unit`` the key of its rate in millions per second.  The bound counts
     the tensors in ``reads`` read once, ``fn()``'s outputs written once and
-    ``int8_ops`` tensor-core operations (``bound_ms``)."""
+    ``int8_ops`` tensor-core operations (``bound_ms``).  With ``cold``, the
+    line also has the cold-L2 time (``cold_ms``) and its share."""
     got = fn()
     ok = same(got, plain()) if check else True
     line = dict(line, check=("match" if ok else "DIFF") if check
@@ -107,6 +125,9 @@ def report(line, fn, plain, *, device, work, unit="mpos_s", reps=20,
                      "bound_by": b_by, "bound_share": b_ms / ms},
                     device=torch.cuda.get_device_name(device),
                     card=card_line())
+        if cold:
+            cold_ms = time_ms(fn, reps, warmup, cold=True)[0]
+            line.update(cold_ms=cold_ms, cold_bound_share=b_ms / cold_ms)
     else:
         line.update({"ms": None, unit: None, "plain_ms": None,
                      "host_ms": None}, device="cpu", card=None)

@@ -9,9 +9,10 @@ PyTorch front on the same card.
             planes on the card: the counterpart of the script's XLA front.
 
 Each kernel is held against the plain version on the same streams before
-it is timed.  ``--baseline SRC.cu`` (an earlier ``front_planes.cu``, as in
-``probe_pallas_parts``) also prints ``count`` timed in turns with that
-source's kernel at C and 2C, with both kernels' two-point fits.
+it is timed.  ``--baseline SRC.cu`` (a ``front_planes.cu`` from before
+csrc/front_reduce.cu, as in ``probe_pallas_parts``) also prints ``count``
+timed in turns with that source's kernel at C and 2C, warm and with a cold
+L2, with both kernels' two-point fits.
 
 Usage: python -m modimizer_tpu_torch.probes.probe_pallas_front [C_log2] [MJ]
        [--baseline SRC.cu]
@@ -25,7 +26,7 @@ from ..core.seqhash import Seqhash
 from ..ops.front_kernel import front_planes, front_planes_ref
 from . import SEED, front_inputs, resolve_device
 from ._timing import report
-from .probe_pallas_parts import baseline_library, reduce_turns
+from .probe_pallas_parts import baseline_library, turns
 
 K, W = 16, 16
 
@@ -53,9 +54,13 @@ def main(argv=None, device=None):
                      lambda: front_planes_ref(*streams, **args),
                      device=dev, work=C, reads=streams)
         if name == "count" and L is not None:
-            good, line = reduce_turns(L, "probe_pallas_front", variant,
-                                      a.C_log2, a.MJ, dev)
-            ok &= good
+            if variant in L.variants:
+                good, line = turns(L, "probe_pallas_front", variant,
+                                   a.C_log2, a.MJ, dev)
+                ok &= good
+            else:
+                line = dict(base, variant=name, turns=False,
+                            reason="the baseline has no count")
             print(json.dumps(line), flush=True)
     args = dict(factor1=factor1, w=W, variant="full", mj=a.MJ)
     report(dict(base, variant="front32", kernel=None),

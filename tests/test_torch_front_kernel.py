@@ -4,7 +4,10 @@ against each Pallas probe kernel run in interpret mode with the script's own
 BlockSpecs, and against the XLA front ``_scan_front_u32`` + ``mod_is_zero``.
 front_reduce's schedule (``front_reduce_lanes``: its map of words to
 threads, its u32 rows, its folds) is rehearsed against both, with its u32
-headroom and two mutated maps.  The CUDA kernels themselves are held
+headroom and two mutated maps; so is front_planes.cu's emonly kernel
+(``front_emit_lanes``: a word a thread, its four loads, its 16 bytes packed
+into one uint4), on tails, poly-A and poly-T chunks and four independent
+streams, with two mutated maps.  The CUDA kernels themselves are held
 against front_planes_ref on the card by chip_smoke.py."""
 
 import functools
@@ -31,9 +34,10 @@ from modimizer_tpu.ops.packed import mod_is_zero, pack_sw  # noqa: E402
 from modimizer_tpu.parallel.sharded import _scan_front_u32  # noqa: E402
 from modimizer_tpu_torch.ops import front_kernel  # noqa: E402
 from modimizer_tpu_torch.ops.front_kernel import (  # noqa: E402
-    REDUCE_MAX_NJ, REDUCE_MAX_WORDS, REDUCE_MIN_THREADS, REDUCE_THREADS,
-    VARIANTS, front_planes, front_planes_ref, front_reduce_lanes,
-    front_reduce_map, make_streams, reduce_grid)
+    EMIT_THREADS, EMIT_WORDS, REDUCE_MAX_NJ, REDUCE_MAX_WORDS,
+    REDUCE_MIN_THREADS, REDUCE_THREADS, VARIANTS, emit_grid, front_emit_lanes, front_emit_map,
+    front_planes, front_planes_ref, front_reduce_lanes, front_reduce_map,
+    make_streams, reduce_grid)
 
 REPO = Path(__file__).resolve().parent.parent
 C_LOG2, MJ = 14, 256
@@ -450,3 +454,154 @@ def test_front_reduce_mutated_map_fails(monkeypatch, mutant):
     (want,) = front_planes_ref(*st, factor1=f1, w=16, variant="noout",
                                mj=128)
     assert not torch.equal(got, want)
+
+
+# ---- front_planes.cu's emonly kernel (front_emit_kernel), on the CPU
+
+# (kind of streams, NJ): whole blocks and the two tails
+EMIT_CASES = [("random", 1024), ("random", 128), ("random", 384),
+              ("independent", 1024), ("independent", 384),
+              ("poly_a", 1024), ("poly_t", 1024)]
+# (blocks, threads, words a batch): one block whose threads take a whole
+# and a partial batch at NJ = 384, the kernel's 256 threads with one and two
+# words a batch, the H100's 132 SMs, small blocks with four words a batch
+EMIT_GRIDS = [(1, 128, 2), (7, 256, 2), (132, EMIT_THREADS, EMIT_WORDS),
+              (1, 256, 1), (3, 64, 4)]
+
+
+@pytest.fixture(scope="module")
+def parts128():
+    """probe_pallas_parts with MJ = 128: its kernels' blocks fit the tails."""
+    return load_script("probe_pallas_parts", ["probe", str(C_LOG2), "128"])
+
+
+def emit_inputs(kind, NJ, seed):
+    """int32 [NJ] x 4: make_streams of random, all-A or all-T bases, or
+    four independent random u32 streams (pb is not pa shifted)."""
+    rng = np.random.default_rng(seed)
+    if kind == "independent":
+        return tuple(torch.from_numpy(rng.integers(0, 2 ** 32, NJ,
+                                                   dtype=np.uint64)
+                                      .astype(np.uint32).view(np.int32))
+                     for _ in range(4))
+    n = 16 * NJ + K - 1
+    codes = {"random": lambda: rng.integers(0, 4, n),
+             "poly_a": lambda: np.zeros(n),
+             "poly_t": lambda: np.full(n, 3)}[kind]().astype(np.uint8)
+    sw = pack_sw(codes, NJ // 2 + 2)
+    return make_streams(torch.from_numpy(sw.view(np.int64)), NJ)
+
+
+def kern_emonly_interpret(parts128, st, factor1, w):
+    """kern_emonly in interpret mode on the four streams, in position
+    order."""
+    NJ = st[0].shape[0]
+    kern = functools.partial(parts128.kern_emonly, factor1=factor1, w=w)
+    spec = pl.BlockSpec((1, 128), lambda g: (g * 0, g),
+                        memory_space=pltpu.VMEM)
+    plane = pl.BlockSpec((16, 128), lambda g: (g * 0, g),
+                         memory_space=pltpu.VMEM)
+    args = tuple(jnp.asarray(t.numpy().view(np.uint32)).reshape(1, NJ)
+                 for t in st)
+    em = pl.pallas_call(kern, grid=(NJ // 128,), in_specs=[spec] * 4,
+                        out_specs=plane,
+                        out_shape=jax.ShapeDtypeStruct((16, NJ), jnp.int8),
+                        interpret=True)(*args)
+    return pos_order(em)
+
+
+@pytest.mark.parametrize("w", [2, 16, 64])
+@pytest.mark.parametrize("kind,NJ", EMIT_CASES)
+def test_front_emit_lanes_equal_kern_emonly(parts128, kind, NJ, w):
+    st = emit_inputs(kind, NJ, NJ + w)
+    f1 = Seqhash.create(K, w, 17).factor1
+    want = kern_emonly_interpret(parts128, st, f1, w)
+    (ref,) = front_planes_ref(*st, factor1=f1, w=w, variant="emonly", mj=128)
+    assert ref.dtype == torch.int8
+    assert np.array_equal(ref.numpy(), want)
+    for G, T, U in EMIT_GRIDS:
+        (got,) = front_emit_lanes(*st, factor1=f1, w=w, G=G, T=T, U=U)
+        assert np.array_equal(got.numpy(), want), (G, T, U)
+
+
+@pytest.mark.parametrize("kind", ["poly_a", "poly_t"])
+def test_poly_chunk_emits_everywhere_and_em_is_zero(kind):
+    """On all-A (kf = 0) and all-T (kr = 0) chunks the canonical k-mer is 0
+    and hashes to 0: every position emits, and em = emit & (km != 0) is all
+    0 (a kernel that dropped the mask would store all 1)."""
+    st = emit_inputs(kind, 1024, 0)
+    f1 = Seqhash.create(K, 64, 17).factor1
+    km, em = front_planes_ref(*st, factor1=f1, w=64, variant="full", mj=128)
+    assert bool((em == 1).all()) and bool((km == 0).all())
+    (e,) = front_planes_ref(*st, factor1=f1, w=64, variant="emonly", mj=128)
+    assert not bool(e.any())
+
+
+@pytest.mark.parametrize("NJ", [128, 384, 4096, 1 << 16])
+@pytest.mark.parametrize("G,T,U", EMIT_GRIDS)
+def test_front_emit_map_takes_each_word_once(NJ, G, T, U):
+    """Every word once; a thread's guarded slots come after its words (the
+    last, partial batch); a warp's 32 threads take 32 consecutive words in
+    each slot (its loads of a stream are 128 contiguous bytes, its uint4
+    stores 512)."""
+    j = front_emit_map(NJ, G, T, U)
+    assert j.shape[:2] == (G, T) and j.shape[3] == U
+    took = j >= 0
+    assert torch.equal(j[took].sort().values, torch.arange(NJ))
+    flat = took.reshape(G, T, -1).to(torch.int8)
+    assert bool((flat[..., 1:] <= flat[..., :-1]).all())
+    lanes = j.reshape(G, T // 32, 32, -1)
+    both = (lanes[:, :, 1:] >= 0) & (lanes[:, :, :-1] >= 0)
+    assert bool(((lanes[:, :, 1:] - lanes[:, :, :-1])[both] == 1).all())
+
+
+def test_emit_grid():
+    """The blocks an SM holds on every SM, and no more than the words fill
+    at a word a thread."""
+    assert emit_grid(1 << 20, 5, 132) == 660
+    assert emit_grid(1 << 21, 8, 132) == 1056
+    assert emit_grid(128, 5, 132) == 1
+    assert emit_grid(384, 5, 132) == 2
+    for nj in (128, 384, 1 << 16, 1 << 20):
+        for bps in (1, 4, 8):
+            G = emit_grid(nj, bps, 132)
+            assert 1 <= G <= max(1, -(-nj // EMIT_THREADS))
+
+
+def _loads_pb_from_pa(pa, pb, za, zb, j):
+    """pb[j] taken as pa[j + 1] and zb[j] as za[j + 1] (the last word from
+    pb and zb): what make_streams' streams allow, and no more."""
+    return (pa[j], torch.cat([pa, pb[-1:]])[j + 1], za[j],
+            torch.cat([za, zb[-1:]])[j + 1])
+
+
+def _pack_big_endian(em):
+    b = em.to(torch.int64).reshape(*em.shape[:-1], 4, 4)
+    return (b << (24 - 8 * torch.arange(4))).sum(dim=-1)
+
+
+@pytest.mark.parametrize("mutant", ["pb_from_pa", "big_endian"])
+def test_front_emit_mutated_map_fails(monkeypatch, mutant):
+    """Four independent streams show a kernel that reads pa[j + 1] for
+    pb[j] (make_streams' streams do not); any stream shows bytes packed
+    big-endian."""
+    f1 = Seqhash.create(K, 2, 17).factor1
+    args = dict(factor1=f1, w=2, G=7, T=256, U=2)
+
+    def ref(st):
+        return front_planes_ref(*st, factor1=f1, w=2, variant="emonly",
+                                mj=128)[0]
+
+    shifted = emit_inputs("random", 1024, 70)
+    independent = emit_inputs("independent", 1024, 71)
+    if mutant == "pb_from_pa":
+        monkeypatch.setattr(front_kernel, "front_emit_loads",
+                            _loads_pb_from_pa)
+        assert torch.equal(front_emit_lanes(*shifted, **args)[0],
+                           ref(shifted))
+    else:
+        monkeypatch.setattr(front_kernel, "front_emit_pack", _pack_big_endian)
+        assert not torch.equal(front_emit_lanes(*shifted, **args)[0],
+                               ref(shifted))
+    assert not torch.equal(front_emit_lanes(*independent, **args)[0],
+                           ref(independent))
