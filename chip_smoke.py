@@ -6,13 +6,17 @@ device count of the builder, and the streaming scanner) and checks each .mod
 against the native host path byte for byte, profiles both paths (stage
 timers, the card's busy time and idle share), runs ``modmap``, ``modasm``
 and ``modrep`` on the card at BASELINE configs 3 and 5 and an rDNA read set
-against the port's host path, then runs the scan-front and
-compaction-primitive probes on the card.
+against the port's host path, runs the scan-front and
+compaction-primitive probes on the card, then the mesh paths through a
+world-size-1 NCCL group (``sharded``: the routing and merge kernels, the
+sharded merge of two real-size modsets against the native merge, the mesh
+lookup table, the routed builder and a snapshot).
 
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --phases env,build,kernels --small
     python3 chip_smoke.py --phases env,build,kernels,probes
     python3 chip_smoke.py --phases env,build,apps
+    python3 chip_smoke.py --phases env,build,sharded
 
 Prints one JSON line per phase, then a ``{"kernels": [...]}`` line (each
 kernel with its launches on the main path, its error against its plain
@@ -39,7 +43,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main", "overflow", "profile", "apps",
-          "probes")
+          "probes", "sharded")
 KW_PAIRS = [(16, 16), (11, 10), (13, 31), (19, 31), (24, 16), (31, 31)]
 # the emit test's edges on both k-mer widths: w = 1 (every position emits)
 # and w = 2^32 + 1 (a 32-bit hash is a multiple only when it is 0)
@@ -56,7 +60,8 @@ PATH_KERNELS = {"builder": ("scan_compact",),
                 "modmap": ("scan_compact", "densify", "find_sorted"),
                 "modasm": ("scan_compact", "densify", "overlap_groups",
                            "overlap_join"),
-                "modrep": ("scan_compact", "densify")}
+                "modrep": ("scan_compact", "densify"),
+                "merge": ("route_rows", "merge_reduce")}
 # kernels a path launches only on some inputs, counted and reported but not
 # required: overlaps.cu's overflow path, for a read with more distinct
 # partners than the join's table holds
@@ -1489,6 +1494,377 @@ def phase_probes(small, launches):
          "card": nvidia_smi_line()})
 
 
+# ---------------------------------------------------------------- sharded
+
+MERGE_READS = 200_000        # A: bench.py's reads, default_rng(42)
+ROUTE_N = (1, 2, 3, 4, 8)
+ROUTE_CHUNK = 1 << 22        # the builder's chunk_per_dev
+
+
+def bench_codes(n_reads, read_len, seed):
+    """bench.py's reads as 2-bit codes (the draws of ``write_reads``):
+    (codes, offsets)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    parts = [rng.integers(0, 4, size=(min(10_000, n_reads - s), read_len))
+             .astype(np.uint8).reshape(-1)
+             for s in range(0, n_reads, 10_000)]
+    return (np.concatenate(parts),
+            np.arange(0, n_reads * read_len + 1, read_len, dtype=np.int64))
+
+
+def count_modset(sh, codes, offsets, bits, rng):
+    """The port's one-device count of a stream on the card, as a Modset
+    with random copy numbers and flag bits in info (as tests/
+    test_sharded.py's merge test sets them)."""
+    import numpy as np
+    from modimizer_tpu_torch.core.modset import Modset
+    from modimizer_tpu_torch.parallel.sharded import ShardedModsetBuilder
+    b = ShardedModsetBuilder(sh, "cuda")
+    b.feed_stream(codes, offsets)
+    ms = Modset(sh, bits)
+    ms.add_batch(*b.finalize())
+    ms.info[1:ms.max + 1] = rng.integers(0, 64, ms.max).astype(np.uint8)
+    return ms
+
+
+def merge_rows(ms_a, ms_b):
+    """The sharded merge's rows at n = 1 (A's, then B's with info bit 8),
+    on the card: (k-mers, depth, info, rank)."""
+    import numpy as np
+    import torch
+    na, nb = ms_a.max, ms_b.max
+    cols = (np.concatenate([ms_a.value[1:na + 1], ms_b.value[1:nb + 1]])
+            .view(np.int64),
+            np.concatenate([ms_a.depth[1:na + 1], ms_b.depth[1:nb + 1]])
+            .astype(np.int32),
+            np.concatenate([ms_a.info[1:na + 1].astype(np.int32),
+                            ms_b.info[1:nb + 1].astype(np.int32) | 0x100]),
+            np.arange(na + nb, dtype=np.int64))
+    return tuple(torch.from_numpy(c).cuda() for c in cols)
+
+
+def merge_edges(rows, na, rng):
+    """merge_reduce's inputs on the edges, from A's first rows (unique
+    k-mers): every row A-only, every row B-only, every k-mer in both,
+    depths that saturate, flag bits in info; each sorted by k-mer with B's
+    row first as often as A's."""
+    import torch
+    m = min(na, 1 << 20)
+    k, d, i = rows[0][:m], rows[1][:m], rows[2][:m] & 0xFF
+    g = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    r = torch.arange(m, dtype=torch.int64, device="cuda")
+    cases = {"a_only": (k, d, i, r), "b_only": (k, d, i | 0x100, r + m),
+             "both": (torch.cat([k, k]), torch.cat([d, d]),
+                      torch.cat([i, (i + 1) | 0x100]), torch.cat([r, r + m])),
+             "saturate": (torch.cat([k, k]), torch.full((2 * m,), 0xFFF0,
+                                                         dtype=torch.int32,
+                                                         device="cuda"),
+                          torch.cat([i, i | 0x100]), torch.cat([r, r + m])),
+             "flags": (torch.cat([k, k[::2]]), torch.cat([d, d[::2]]),
+                       torch.cat([i | 0xFC, (i[::2] | 0xFC) | 0x100]),
+                       torch.cat([r, r[::2] + m]))}
+    out = {}
+    for name, (ck, cd, ci, cr) in cases.items():
+        shuf = torch.randperm(ck.numel(), generator=g, device="cuda")
+        ck, cd, ci, cr = ck[shuf], cd[shuf], ci[shuf], cr[shuf]
+        o = torch.sort(ck, stable=True).indices
+        out[name] = (ck[o], cd[o].contiguous(), ci[o].contiguous(), cr[o])
+    return out
+
+
+def library_route(kmers, n, cap):
+    """The JAX route with library calls (merge mode): each row's owner, a
+    stable torch.sort of the owner keys (sentinels last), the group
+    starts, and the gather of each owner's first cap rows."""
+    import torch
+    from modimizer_tpu_torch.ops.route import owners
+    key = torch.where(kmers != -1, owners(kmers, n, "merge"), n)
+    sk, order = torch.sort(key, stable=True)
+    ar = torch.arange(n, device=kmers.device)
+    starts = torch.searchsorted(sk, ar)
+    ends = torch.searchsorted(sk, ar, right=True)
+    j = torch.arange(n * cap, device=kmers.device)
+    idx = starts[j // cap] + j % cap
+    live = idx < ends[j // cap]
+    return torch.where(live, order[idx.clamp(max=kmers.numel() - 1)], -1)
+
+
+def library_merge(k, d, i, r):
+    """The reduction with library calls: torch.unique_consecutive of the
+    sorted k-mers (and the rows' count), then scatter_reduce of depth
+    (sum), rank (min) and info (max)."""
+    import torch
+    uniq, inv, cnt = torch.unique_consecutive(k, return_inverse=True,
+                                              return_counts=True)
+    nh = uniq.numel()
+    dsum = torch.zeros(nh, dtype=torch.int64, device=k.device)
+    dsum.scatter_reduce_(0, inv, d.to(torch.int64), "sum")
+    rmin = torch.full((nh,), 1 << 62, dtype=torch.int64, device=k.device)
+    rmin.scatter_reduce_(0, inv, r, "amin")
+    imax = torch.zeros(nh, dtype=torch.int64, device=k.device)
+    imax.scatter_reduce_(0, inv, i.to(torch.int64), "amax")
+    return uniq, dsum.clamp_(max=0xFFFF), rmin, imax, cnt
+
+
+def check_route_merge(rng, rows, na, chunk_rows, sh, cap_builder, report):
+    """route_rows and merge_reduce against their plain versions on the card,
+    bit for bit: every mode at each n in ROUTE_N, at the builder's route
+    size (one chunk of scan_compact rows) and at the merge size (the
+    merge's rows), each with cap = its largest owner's rows (full, no
+    overflow) and at n = 4 with half of that (overflow); merge_reduce on
+    the merge's rows and on its edges; then both timed at the merge's
+    shape."""
+    import torch
+    from modimizer_tpu_torch import _build
+    from modimizer_tpu_torch.ops.merge import merge_reduce, merge_reduce_ref
+    from modimizer_tpu_torch.ops.route import (owners, route_rows,
+                                               route_rows_ref)
+    from modimizer_tpu_torch.probes._timing import bound_ms, nbytes
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    kmers = rows[0]
+    ck, cp, base = chunk_rows
+    hkw = dict(k=sh.k, w=sh.w, factor1=sh.factor1)
+    lines, err = [], 0.0
+    before = _build.LAUNCHES["route_rows"]
+    for size, km, pos, b0 in (("builder", ck, cp, base),
+                              ("merge", kmers, None, 0)):
+        N = km.numel()
+        if pos is None:
+            pos = torch.from_numpy(rng.integers(-1, 1 << 31, N).astype(
+                "int32")).cuda()
+        for mode in ("builder", "merge", "lookup"):
+            kw = {} if mode == "merge" else dict(hkw)
+            for n, over in [(n, False) for n in ROUTE_N] + [(4, True)]:
+                own = owners(km, n, mode, **kw)
+                if mode != "lookup":
+                    own = own[km != -1]
+                top = int(torch.bincount(own, minlength=n).max())
+                cap = max(1, top // 2 if over else top)
+                args = dict(kw, pos=pos, base=b0) if mode == "builder" \
+                    else kw
+                got = route_rows(km, n, cap, mode, **args)
+                want = route_rows_ref(km, n, cap, mode, **args)
+                torch.cuda.synchronize()
+                e = max_abs_err(zip(got, want))
+                err = max(err, e)
+                lines.append([size, mode, n, cap, bool(got.overflow)])
+                if e or bool(got.overflow) != over:
+                    fail("route_rows != route_rows_ref at %s %s n=%d cap=%d"
+                         % (size, mode, n, cap))
+    if _build.LAUNCHES["route_rows"] - before != len(lines):
+        fail("route_rows: %d launches for %d calls"
+             % (_build.LAUNCHES["route_rows"] - before, len(lines)))
+    o = torch.sort(kmers, stable=True).indices
+    merged = tuple(c[o].contiguous() for c in rows)
+    mcases = dict(merge_edges(rows, na, rng), rows=merged)
+    for name, (k, d, i, r) in mcases.items():
+        got = merge_reduce(k, d, i, r, kmers.numel())
+        want = merge_reduce_ref(k, d, i, r, kmers.numel())
+        torch.cuda.synchronize()
+        e = max_abs_err(zip(got, want))
+        err = max(err, e)
+        lines.append(["merge_reduce", name, k.numel(), int(got[4])])
+        if e:
+            fail("merge_reduce != merge_reduce_ref on %s" % name)
+    # times at the merge's shape (n = 1: every row to one owner)
+    N = kmers.numel()
+    t = {}
+    for who, fn in (
+            ("route", lambda: route_rows(kmers, 1, N, "merge")),
+            ("route_lib", lambda: library_route(kmers, 1, N)),
+            ("route", lambda: route_rows(kmers, 1, N, "merge")),
+            ("route_lib", lambda: library_route(kmers, 1, N)),
+            ("merge", lambda: merge_reduce(*merged, N)),
+            ("merge_lib", lambda: library_merge(*merged)),
+            ("merge", lambda: merge_reduce(*merged, N)),
+            ("merge_lib", lambda: library_merge(*merged))):
+        t.setdefault(who, []).append(device_ms(fn, 20)[0])
+    t["route_plain"] = device_ms(
+        lambda: route_rows_ref(kmers, 1, N, "merge"), 3, 1)[0]
+    t["merge_plain"] = device_ms(lambda: merge_reduce_ref(*merged, N),
+                                 3, 1)[0]
+    t["route_builder"] = device_ms(lambda: route_rows(
+        ck, 1, cap_builder, "builder", pos=cp, base=base, **hkw), 20)[0]
+    card = nvidia_smi_line()
+    rb_ms, rb_by = bound_ms(N * 8 + nbytes(*route_rows(kmers, 1, N,
+                                                       "merge")))
+    mout = merge_reduce(*merged, N)
+    mb_ms, mb_by = bound_ms(nbytes(*merged, *mout))
+    report["route_rows"].update(
+        max_abs_err=err, ms=min(t["route"]), plain_ms=t["route_plain"],
+        bound_ms=rb_ms, bound_by=rb_by, bound_share=rb_ms / min(t["route"]),
+        library_ms=min(t["route_lib"]),
+        library="owners + stable torch.sort of the owner keys + "
+        "searchsorted + gather, in turns with the kernel",
+        builder_chunk_ms=t["route_builder"],
+        timed="merge mode, n=1, %d rows; builder_chunk_ms: builder mode, "
+        "one chunk of 2^22 positions, %d rows, cap %d"
+        % (N, ck.numel(), cap_builder), card=card)
+    report["merge_reduce"].update(
+        max_abs_err=err, ms=min(t["merge"]), plain_ms=t["merge_plain"],
+        bound_ms=mb_ms, bound_by=mb_by, bound_share=mb_ms / min(t["merge"]),
+        library_ms=min(t["merge_lib"]),
+        library="torch.unique_consecutive + scatter_reduce (depth sum, "
+        "rank min, info max), in turns with the kernel",
+        timed="%d received rows, %d heads, out_len %d"
+        % (merged[0].numel(), int(mout[4]), N), card=card)
+    say({"phase": "sharded_kernels", "cases": lines, "max_abs_err": err,
+         "turns_ms": t, "route_bound_ms": rb_ms, "merge_bound_ms": mb_ms,
+         "card": card})
+
+
+def phase_sharded(small, work, launches, report):
+    """The mesh paths through a world-size-1 NCCL group: the kernels held
+    against their plain versions (check_route_merge), ``sharded_merge`` of
+    two real-size modsets byte-identical to the native merge (the main
+    path: launch counts zeroed just before and read just after), the mesh
+    ``DeviceTable`` against the one-device table on config 3's shape, the
+    routed builder against the one-device one, and a snapshot saved and
+    restored through the group.  Under torchrun (WORLD_SIZE > 1, one
+    process a card) the same mesh paths at that world size, without the
+    kernel checks."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from modimizer_tpu_torch import _build
+    from modimizer_tpu_torch.core.modset import Modset
+    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.ops.scan_kernel import scan_compact
+    from modimizer_tpu_torch.parallel.lookup import DeviceTable
+    from modimizer_tpu_torch.parallel.mesh import build_mesh
+    from modimizer_tpu_torch.parallel.sharded import (ShardedModsetBuilder,
+                                                      sharded_merge)
+    from modimizer_tpu_torch.probes.probe_lookup import SHAPES
+    from modimizer_tpu_torch.utils import profiling
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group("nccl",
+                                timeout=datetime.timedelta(seconds=300))
+    rng = np.random.default_rng(SEED)
+    sh = Seqhash.create(16, 16, SEED)
+    n_reads = 2_000 if small else MERGE_READS
+    shared = n_reads // 4    # B: A's first quarter, then as many new reads
+    t0 = time.perf_counter()
+    codes, offsets = bench_codes(n_reads, 1000, 42)
+    ms_a = count_modset(sh, codes, offsets, 26, rng)
+    new, _ = bench_codes(shared, 1000, 43)
+    codes_b = np.concatenate([codes[:shared * 1000], new])
+    offs_b = np.arange(0, len(codes_b) + 1, 1000, dtype=np.int64)
+    ms_b = count_modset(sh, codes_b, offs_b, 26, rng)
+    setup_s = time.perf_counter() - t0
+    if world == 1:
+        sw, vb = random_chunk(rng, ROUTE_CHUNK, sh.k)
+        b1 = ShardedModsetBuilder(sh, "cuda", state_size=16)
+        ck, cp, _c, _n, _o = scan_compact(sw, vb, k=sh.k, w=sh.w,
+                                          factor1=sh.factor1, C=ROUTE_CHUNK,
+                                          bo=b1.bo, meta_isf=False)
+        check_route_merge(rng, merge_rows(ms_a, ms_b), ms_a.max,
+                          (ck, cp, 5 << 33), sh, b1.cap, report)
+        init = os.path.join(work, "nccl_init")
+        dist.init_process_group("nccl", init_method="file://" + init,
+                                world_size=1, rank=0)
+    try:
+        mesh = build_mesh(group=dist.group.WORLD)
+        if (mesh.n, mesh.device.type) != (world, "cuda"):
+            fail("sharded: the mesh is %d ranks on %s"
+                 % (mesh.n, mesh.device))
+        mesh.barrier()          # NCCL makes its communicator here
+        # the main path: the sharded merge, then again, warm, with the
+        # stage timers on
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        mk, md, mi = sharded_merge(ms_a, ms_b, mesh)
+        torch.cuda.synchronize()
+        merge_s = [time.perf_counter() - t1]
+        counts = {n: _build.LAUNCHES[n] for n in PATH_KERNELS["merge"]}
+        if not all(counts.values()):
+            fail("sharded_merge: a kernel was never launched: %s" % counts)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        enabled, profiling._enabled = profiling._enabled, True
+        profiling._stages.clear()
+        try:
+            t1 = time.perf_counter()
+            again = sharded_merge(ms_a, ms_b, mesh)
+            merge_s.append(time.perf_counter() - t1)
+            merge_stages = {k: v[0] for k, v in
+                            sorted(profiling._stages.items())}
+        finally:
+            profiling._enabled = enabled
+            profiling._stages.clear()
+        if not all(np.array_equal(a, b) for a, b in zip(again,
+                                                        (mk, md, mi))):
+            fail("sharded_merge: two calls differ")
+        na, nb = ms_a.max, ms_b.max
+        t1 = time.perf_counter()
+        if not ms_a.merge(ms_b):
+            fail("native merge refused the modsets")
+        native_s = time.perf_counter() - t1
+        ms_c = Modset(sh, 26)
+        ms_c.add_batch(mk, np.zeros(len(mk), np.uint32))
+        ms_c.depth[1:ms_c.max + 1] = md
+        ms_c.info[1:ms_c.max + 1] = mi
+        same_merge = ms_c.to_bytes() == ms_a.to_bytes()
+        if not same_merge:
+            fail("sharded_merge differs from the native merge")
+        # the mesh DeviceTable on config 3's shape
+        n_keys, nq = (5_000, 3_000) if small else SHAPES["config3"]
+        keys = ms_a.value[1:min(ms_a.max, n_keys) + 1]
+        ids = np.arange(1, len(keys) + 1, dtype=np.uint32)
+        q = np.concatenate([rng.choice(keys, nq // 2), rng.integers(
+            0, 1 << 32, nq - nq // 2).astype(np.uint64),
+            np.array([0xFFFFFFFFFFFFFFFF], np.uint64)])
+        _build.reset_launches()
+        got = DeviceTable(keys, ids, sh, mesh).find(q)
+        table_launches = dict(route_rows=_build.LAUNCHES["route_rows"],
+                              find_sorted=_build.LAUNCHES["find_sorted"])
+        want = DeviceTable(keys, ids, sh, "cuda").find(q)
+        same_table = np.array_equal(got, want) and bool(got.any())
+        if not same_table or not all(table_launches.values()):
+            fail("mesh DeviceTable differs from the one-device table (%s)"
+                 % table_launches)
+        # the routed builder at n = 1 against the one-device builder, and a
+        # snapshot through the group
+        cut_reads = min(n_reads, 20_000)
+        sc, so = codes[:cut_reads * 1000], offsets[:cut_reads + 1]
+        one = ShardedModsetBuilder(sh, "cuda", chunk_per_dev=1 << 20)
+        one.feed_stream(sc, so)
+        want_b = one.finalize()
+        _build.reset_launches()
+        rb = ShardedModsetBuilder(sh, mesh, chunk_per_dev=1 << 20)
+        half = cut_reads // 2
+        rb.feed_stream(sc[:half * 1000], so[:half + 1])
+        snap = os.path.join(work, "mesh.snap")
+        rb.save(snap, cursor=half * 1000)
+        rb, cursor = ShardedModsetBuilder.restore(snap, sh, mesh)
+        rb.feed_stream(sc[cursor:], so[half:] - cursor, base=cursor)
+        got_b = rb.finalize()
+        builder_launches = dict(scan_compact=_build.LAUNCHES["scan_compact"],
+                                route_rows=_build.LAUNCHES["route_rows"])
+        same_build = (all(np.array_equal(a, b)
+                          for a, b in zip(got_b, want_b))
+                      and rb.total_emitted == one.total_emitted and rb.routed)
+        if not same_build or not all(builder_launches.values()):
+            fail("the routed builder differs from the one-device builder "
+                 "(%s)" % builder_launches)
+    finally:
+        dist.destroy_process_group()
+    say({"phase": "sharded", "world_size": world, "rank": mesh.rank,
+         "device": str(mesh.device), "backend": "nccl",
+         "modset_a": na, "modset_b": nb, "merged": int(ms_a.max),
+         "merge_identical": same_merge, "sharded_merge_s": merge_s,
+         "sharded_merge_stages_s": merge_stages, "native_merge_s": native_s,
+         "merge_launches": counts,
+         "table_identical": same_table, "table_keys": len(keys),
+         "table_queries": len(q), "table_launches": table_launches,
+         "builder_identical": same_build, "snapshot_cursor": cursor,
+         "builder_launches": builder_launches, "setup_s": setup_s,
+         "card": nvidia_smi_line()})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1552,6 +1928,16 @@ def main(argv=None):
         report[name] = {"name": name, "route": "cuda",
                         "source": "modimizer_tpu_torch/csrc/mosaic_prims.cu",
                         "replaces": "scripts/probe_mosaic_prims.py:%d" % line}
+    report["route_rows"] = {
+        "name": "route_rows", "route": "cuda",
+        "source": "modimizer_tpu_torch/csrc/route.cu",
+        "replaces": "modimizer_tpu/parallel/sharded.py:1692",
+        "also_replaces": ["modimizer_tpu/parallel/sharded.py:2101",
+                          "modimizer_tpu/parallel/lookup.py:136"]}
+    report["merge_reduce"] = {
+        "name": "merge_reduce", "route": "cuda",
+        "source": "modimizer_tpu_torch/csrc/merge.cu",
+        "replaces": "modimizer_tpu/parallel/sharded.py:2131"}
     launches = {}
     work = os.path.join(HERE, "chip_smoke_work")
     try:
@@ -1574,6 +1960,9 @@ def main(argv=None):
             phase_apps(a.small, work, launches)
         if "probes" in phases:
             phase_probes(a.small, launches)
+        if "sharded" in phases:
+            os.makedirs(work, exist_ok=True)
+            phase_sharded(a.small, work, launches, report)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for name, entries in ENTRIES.items():

@@ -31,7 +31,7 @@ LAUNCHES = {"scan_compact": 0, "densify": 0, "find_sorted": 0,
             "overlap_groups": 0, "overlap_join": 0, "overlap_dense": 0,
             "front_planes": 0, "front_reduce": 0, "front_mma": 0,
             "front_ops": 0, "tala16": 0, "dot16": 0, "roll12": 0,
-            "cumsum128": 0}
+            "cumsum128": 0, "route_rows": 0, "merge_reduce": 0}
 
 
 def reset_launches():
@@ -207,6 +207,20 @@ def _declare(L):
                        ("mz_cumsum128", [p, i64, p])):    # e, rows, out
         getattr(L, name).restype = ctypes.c_int
         getattr(L, name).argtypes = args + [p]            # + stream
+    L.mz_route_rows.restype = ctypes.c_int
+    L.mz_route_rows.argtypes = [
+        p, p, u64, i64,        # kmers, pos (builder mode, nullable), base, N
+        i32, u64, i32, u64,    # mode, factor1, shift, w
+        i32, i32, i32, p,      # n, cap, segments, tally scratch
+        p, p, p,               # index, counts, overflow
+        p, p,                  # send_k, send_p (builder mode, nullable)
+        p]                     # stream
+    L.mz_merge_reduce.restype = ctypes.c_int
+    L.mz_merge_reduce.argtypes = [
+        p, p, p, p,            # kmers, depth, info, rank
+        i64, i64, i32, p,      # m, out_len, blocks, block-count scratch
+        p, p, p, p, p,         # out_k, out_d, out_i, out_r, n_heads
+        p]                     # stream
     L.mz_error_string.restype = ctypes.c_char_p
     L.mz_error_string.argtypes = [i32]
 

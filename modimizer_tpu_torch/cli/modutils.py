@@ -25,6 +25,7 @@ from ..core.modset import Modset
 from ..core.seqhash import Seqhash
 from ..io import seqio
 from ..ops.seqhash import ModimizerScanner
+from ..parallel.mesh import build_mesh
 from ..parallel.sharded import ShardedModsetBuilder
 from ..utils import profiling
 from ..utils.timers import Timer
@@ -176,7 +177,7 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
         codes = np.concatenate(parts) if parts else np.zeros(0, np.int8)
         offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
     if _count_on_device(scanner, len(codes)):
-        builder = ShardedModsetBuilder(ms.hasher, scanner.device)
+        builder = ShardedModsetBuilder(ms.hasher, build_mesh(scanner.device))
         builder.feed_stream(codes, offsets)
         uniq, counts = builder.finalize()
         n_hash = builder.total_emitted

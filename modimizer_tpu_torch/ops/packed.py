@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 _SIGN = -(1 << 63)
+_M32 = 0xFFFFFFFF
 
 
 def as_i64(u: int) -> int:
@@ -134,3 +135,27 @@ def mod_is_zero(hashes, w: int):
     if t:
         prod = lsr(prod, t) | (prod << (64 - t))
     return ule(prod, ((1 << 64) - 1) // w)
+
+
+def _udiv(x, d: int):
+    """floor(x / d) for int64-carried u64 x and a Python divisor 1 <= d <
+    2^64: the halved dividend divides exactly in int64, and the remainder
+    (below 2d) fixes the last bit."""
+    if d >> 63:
+        return (~ule(x, d - 1)).to(torch.int64)
+    q = (lsr(x, 1) // d) << 1
+    r = x - q * d                       # u64 bits of a value below 2d
+    return q + (~ule(r, d - 1)).to(torch.int64)
+
+
+def div_mod_owner(hashes, w: int, n: int):
+    """(hashes // w) % n for int64-carried u64 hashes, as int64 (port of
+    the JAX package's ``div_mod_owner``, with its power-of-two shortcuts on
+    w and on n): the shard that owns a k-mer."""
+    if w & (w - 1) == 0:
+        q = lsr(hashes, w.bit_length() - 1)
+    else:
+        q = _udiv(hashes, w)
+    if n & (n - 1) == 0 and n <= 1 << 31:
+        return q & _M32 & (n - 1)
+    return q - _udiv(q, n) * n

@@ -1,6 +1,6 @@
-"""Device k-mer table lookup on one device (port of the n = 1 path of
-``modimizer_tpu/parallel/lookup.py``: ``DeviceTable`` and
-``_find_sorted_local``).
+"""Device k-mer table lookup, on one device or over a shard mesh (port of
+``modimizer_tpu/parallel/lookup.py``: ``DeviceTable``,
+``_find_sorted_local`` and ``_sharded_find``).
 
 The table is a sorted k-mer column with a parallel value column; a batch of
 queries is answered by a lower-bound search per query, an equality test,
@@ -15,15 +15,26 @@ u64 k-mers ride in int64: the keys are sorted in int64 order and searched
 with signed compares, so every u64 query finds its equal key.  The JAX
 table pads with one all-ones sentinel row (value 0) so that its search can
 clamp; in int64 that pad is -1 and would sort first, so the port keeps the
-live rows only and answers 0 past them.  The mesh-sharded table
-(``_sharded_find``) is not ported: more than one device raises.
+live rows only and answers 0 past them.
+
+On a mesh over a process group (``parallel/mesh.py``) rank r keeps the
+keys it owns, by the builder's hash partition (``div_mod_owner`` of the
+canonical hash), sorted with their own search index.  ``find`` is SPMD:
+every rank passes the whole query array and takes its slice of ``qcap``
+queries; ``route_rows`` (lookup mode: every slot routes) sends each query
+to its owner with one ``all_to_all``, the owner answers with
+``find_sorted``, the answers ride the inverse exchange back to the slots
+they came from, and the route's own index stores them in input order (the
+JAX program sorts by a carried slot id instead).  A gather gives every
+rank the whole answer.
 """
 
 import numpy as np
 import torch
 
 from .. import _build
-from .sharded import _one_device
+from ..ops.route import SENTINEL, gather_rows, route_rows
+from .mesh import as_mesh
 
 
 def _check(keys, vals, q):
@@ -113,28 +124,66 @@ def find_sorted(keys, vals, q, index=None):
 
 
 class DeviceTable:
-    """Sorted-k-mer table on one torch device, built from host (kmers,
-    values); queries are answered in input order.  ``device``: a
-    torch.device or its name, or a list of one; None takes the CUDA card."""
+    """Sorted-k-mer table on a mesh (a ``Mesh``, or a device for one rank:
+    a torch.device or its name, or a list of one; None takes the CUDA
+    card), built from host (kmers, values); queries are answered in input
+    order."""
 
     def __init__(self, kmers: np.ndarray, values: np.ndarray, hasher,
                  device=None):
-        self.device = _one_device(device, "DeviceTable")
-        self.n = 1
+        self.mesh = as_mesh(device)
+        self.device = self.mesh.device
+        self.n = self.mesh.n
         self.sh = hasher
-        kmers = np.ascontiguousarray(kmers, np.uint64).view(np.int64)
-        values = np.ascontiguousarray(values, np.uint32).view(np.int32)
-        keys = torch.from_numpy(kmers).to(self.device)
+        kmers = np.ascontiguousarray(kmers, np.uint64)
+        values = np.ascontiguousarray(values, np.uint32)
+        if self.mesh.distributed:
+            mine = self._owner(kmers) == self.mesh.rank
+            kmers, values = kmers[mine], values[mine]
+        keys = torch.from_numpy(kmers.view(np.int64)).to(self.device)
         self.keys, order = torch.sort(keys, stable=True)
-        self.vals = torch.from_numpy(values).to(self.device)[order]
+        self.vals = torch.from_numpy(values.view(np.int32)).to(
+            self.device)[order]
         self.index = search_index(self.keys)
+
+    def _owner(self, kmers):
+        """The rank that owns each k-mer (the JAX table's host rule)."""
+        h = (kmers * np.uint64(self.sh.factor1)) >> np.uint64(self.sh.shift1)
+        w = self.sh.w
+        if w & (w - 1) == 0:
+            q = h >> np.uint64(w.bit_length() - 1)
+        else:
+            q = h // np.uint64(w)
+        return (q % np.uint64(self.n)).astype(np.int64)
 
     def find(self, q_kmers: np.ndarray) -> np.ndarray:
         """Batched lookup; returns u32 values aligned with q_kmers, 0 where
-        absent (modsetIndexFind isAdd=false semantics)."""
+        absent (modsetIndexFind isAdd=false semantics).  On a mesh every
+        rank passes the same queries and gets the whole answer."""
         q_kmers = np.ascontiguousarray(q_kmers, np.uint64)
-        if len(q_kmers) == 0:
+        nq = len(q_kmers)
+        if nq == 0:
             return np.zeros(0, np.uint32)
-        q = torch.from_numpy(q_kmers.view(np.int64)).to(self.device)
-        out = find_sorted(self.keys, self.vals, q, self.index)
+        if not self.mesh.distributed:
+            q = torch.from_numpy(q_kmers.view(np.int64)).to(self.device)
+            out = find_sorted(self.keys, self.vals, q, self.index)
+            return out.cpu().numpy().view(np.uint32)
+        mesh, sh = self.mesh, self.sh
+        qcap = -(-nq // self.n)
+        mine = np.full(qcap, SENTINEL, np.int64)
+        part = q_kmers[mesh.rank * qcap:(mesh.rank + 1) * qcap]
+        mine[:len(part)] = part.view(np.int64)
+        q = torch.from_numpy(mine).to(self.device)
+        # a rank sends qcap queries, so qcap slots an owner never overflow
+        # (the JAX program checks the flag and widens)
+        rt = route_rows(q, self.n, qcap, "lookup", k=sh.k, w=sh.w,
+                        factor1=sh.factor1)
+        recv = mesh.all_to_all(gather_rows(rt.index, q, SENTINEL))
+        ans = find_sorted(self.keys, self.vals, recv, self.index)
+        ans = torch.where(recv != SENTINEL, ans, torch.zeros_like(ans))
+        back = mesh.all_to_all(ans)
+        sent = rt.index >= 0
+        out = torch.zeros(qcap, dtype=torch.int32, device=self.device)
+        out[rt.index[sent].to(torch.int64)] = back[sent]
+        out = mesh.all_gather(out).reshape(-1)[:nq]
         return out.cpu().numpy().view(np.uint32)

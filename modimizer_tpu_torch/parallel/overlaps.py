@@ -41,7 +41,7 @@ import torch
 
 from .. import _build
 from ..utils import profiling
-from .sharded import _one_device
+from .mesh import as_device
 
 TOPBIT = np.uint32(0x80000000)
 TOPMASK = np.uint32(0x7FFFFFFF)
@@ -339,7 +339,7 @@ def overlap_counts(readset, dmax: int = 64, pair_cap: int = None,
     overlaps.order."""
     if device is None:
         device = getattr(readset, "device", None)
-    dev = _one_device(device, "overlap_counts")
+    dev = as_device(device, "overlap_counts")
     with profiling.stage("overlaps.prep"):
         rows, n_repeat, bad_repeat = overlap_inputs(readset)
     with profiling.stage("overlaps.device"):

@@ -143,10 +143,24 @@ def test_unsorted_keys_with_the_sign_bit():
 
 def test_more_than_one_device_raises(table):
     _, ms, _ = table
-    with pytest.raises(NotImplementedError, match="DeviceTable: 2 devices"):
+    with pytest.raises(ValueError, match="2 devices in one process"):
         DeviceTable(ms.value[1:ms.max + 1],
                     np.arange(1, ms.max + 1, dtype=np.uint32), ms.hasher,
                     device=["cpu", "cpu"])
+
+
+def test_device_table_on_a_mesh_without_a_group(table):
+    """A Mesh with no group is the one-device table."""
+    from modimizer_tpu_torch.parallel.mesh import build_mesh
+    jms, ms, kmers = table
+    port, jax_t = tables(jms, ms)
+    mesh_t = DeviceTable(ms.value[1:ms.max + 1],
+                         np.arange(1, ms.max + 1, dtype=np.uint32),
+                         ms.hasher, build_mesh("cpu"))
+    assert (mesh_t.n, mesh_t.mesh.distributed) == (1, False)
+    assert torch.equal(mesh_t.keys, port.keys)
+    q = queries(kmers, seed=5)
+    assert np.array_equal(mesh_t.find(q), jax_t.find(q))
 
 
 def test_no_device_without_cuda_raises(table):

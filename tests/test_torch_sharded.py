@@ -254,11 +254,33 @@ def test_snapshot_mismatch_errors(tmp_path):
 
 
 def test_more_than_one_device_refused():
-    with pytest.raises(NotImplementedError, match="one"):
+    """A list of devices is one process's; the port runs one process a
+    device, so more than one is refused, and a device, a list of one or a
+    mesh with no group is the one-device path."""
+    from modimizer_tpu_torch.parallel.mesh import Mesh, build_mesh
+    with pytest.raises(ValueError, match="2 devices in one process"):
         tsh.ShardedModsetBuilder(Seqhash.create(16, 16, SEED), ["cpu", "cpu"])
-    b = tsh.ShardedModsetBuilder(Seqhash.create(16, 16, SEED), ["cpu"],
-                                 state_size=16)
-    assert b.device == torch.device("cpu")
+    for dev in (["cpu"], "cpu", build_mesh("cpu"), Mesh("cpu")):
+        b = tsh.ShardedModsetBuilder(Seqhash.create(16, 16, SEED), dev,
+                                     state_size=16)
+        assert b.device == torch.device("cpu")
+        assert (b.n, b.routed, b.mesh.rank) == (1, False, 0)
+
+
+def test_builder_on_a_mesh_without_a_group_equals_jax():
+    """A Mesh with no group is the one-device path: the same finalize,
+    state and snapshot as the JAX n = 1 builder."""
+    from modimizer_tpu_torch.parallel.mesh import build_mesh
+    sh = Seqhash.create(16, 16, SEED)
+    codes, offsets = stream(7, n_reads=60, poly_a=False)
+    pb = tsh.ShardedModsetBuilder(sh, build_mesh("cpu"), **KW)
+    jb = jax_builder(sh)
+    pb.feed_stream(codes, offsets)
+    jb.feed_stream(codes, offsets)
+    want, got = jb.finalize(), pb.finalize()
+    assert np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])
+    assert_same_state(jb, pb)
+    assert not pb.routed and pb.n_compact > 0
 
 
 # ------------------------------------------------------------------ the CLI

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``modimizer_tpu_torch`` (and not
-``chip_smoke.py``) imports jax or the JAX package, and the port's copies of
+``chip_smoke.py``) imports jax or the JAX package (the subprocess also
+runs the mesh modules, ``parallel/mesh.py``, ``ops/route.py`` and
+``ops/merge.py``, through ``sharded_merge``), and the port's copies of
 the host modules (``core``, ``io``, ``native``, ``utils``, ``cli``, the
 scanner's host methods) behave as the JAX package's originals: Seqhash
 fields, ``scan_bo``, the sequence readers, the native host scan and the
@@ -76,6 +78,8 @@ names = [m.name for m in pkgutil.walk_packages(modimizer_tpu_torch.__path__,
                                               "modimizer_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("parallel.mesh", "ops.route", "ops.merge"):
+    assert "modimizer_tpu_torch." + name in names, name
 from modimizer_tpu_torch.cli import modasm, modmap, modrep, modutils
 modutils.main(sys.argv[1:], device="cpu")
 modmap.main(["-K", "16", "-W", "13", "-f", "g.fa", "-q", "r.fa"],
@@ -83,6 +87,12 @@ modmap.main(["-K", "16", "-W", "13", "-f", "g.fa", "-q", "r.fa"],
 os.environ["MODIMIZER_OVERLAPS"] = "device"
 modasm.main(["-m", "p.mod", "-f", "r.fa", "-S", "-b", "-u"], device="cpu")
 modrep.main(["-R", "g.fa", "p.mod", "-s2", "r.fa", "p.mod"], device="cpu")
+from modimizer_tpu_torch.core.modset import Modset
+from modimizer_tpu_torch.parallel.mesh import build_mesh
+from modimizer_tpu_torch.parallel.sharded import sharded_merge
+ms = Modset.read("p.mod")
+assert sharded_merge(ms, ms, build_mesh("cpu"))[0].tolist() == \
+    ms.value[1:ms.max + 1].tolist()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "modimizer_tpu")]
 assert not bad, bad
 sys.stderr.write("STANDALONE_OK %d\n" % len(names))
