@@ -1498,6 +1498,7 @@ def phase_probes(small, launches):
 
 MERGE_READS = 200_000        # A: bench.py's reads, default_rng(42)
 ROUTE_N = (1, 2, 3, 4, 8)
+ROUTE_TIMED_N = (1, 2, 4, 8)
 ROUTE_CHUNK = 1 << 22        # the builder's chunk_per_dev
 
 
@@ -1573,23 +1574,6 @@ def merge_edges(rows, na, rng):
     return out
 
 
-def library_route(kmers, n, cap):
-    """The JAX route with library calls (merge mode): each row's owner, a
-    stable torch.sort of the owner keys (sentinels last), the group
-    starts, and the gather of each owner's first cap rows."""
-    import torch
-    from modimizer_tpu_torch.ops.route import owners
-    key = torch.where(kmers != -1, owners(kmers, n, "merge"), n)
-    sk, order = torch.sort(key, stable=True)
-    ar = torch.arange(n, device=kmers.device)
-    starts = torch.searchsorted(sk, ar)
-    ends = torch.searchsorted(sk, ar, right=True)
-    j = torch.arange(n * cap, device=kmers.device)
-    idx = starts[j // cap] + j % cap
-    live = idx < ends[j // cap]
-    return torch.where(live, order[idx.clamp(max=kmers.numel() - 1)], -1)
-
-
 def library_merge(k, d, i, r):
     """The reduction with library calls: torch.unique_consecutive of the
     sorted k-mers (and the rows' count), then scatter_reduce of depth
@@ -1607,25 +1591,89 @@ def library_merge(k, d, i, r):
     return uniq, dsum.clamp_(max=0xFFFF), rmin, imax, cnt
 
 
+def route_edges(rows, ck, base, sh, rng):
+    """route_rows' edge cases, each (tag, k-mers, n, cap, mode, args): N =
+    0, 1 and a tile less one, a tile and a tile more one (every seventh row
+    a sentinel) in each mode at n = 1, 3 and 8; every row a sentinel; every
+    row to one owner at n = 8 (merge mode on the merge's rows, lookup mode
+    on one repeated query)."""
+    import torch
+    from modimizer_tpu_torch.ops.route import TILE_ROWS, owners
+    hkw = dict(k=sh.k, w=sh.w, factor1=sh.factor1)
+    out = []
+
+    def case(tag, km, n, mode, pos=None):
+        kw = {} if mode == "merge" else dict(hkw)
+        own = owners(km, n, mode, **kw)
+        if mode != "lookup":
+            own = own[km != -1]
+        cap = max(1, int(torch.bincount(own, minlength=n).max())
+                  if own.numel() else 1)
+        if mode == "builder":
+            kw.update(pos=pos, base=base)
+        out.append((tag, km, n, cap, mode, kw))
+
+    for mode in ("builder", "merge", "lookup"):
+        T = TILE_ROWS[mode]
+        for N in (0, 1, T - 1, T, T + 1):
+            km = rows[:N].clone()
+            km[::7] = -1
+            pos = torch.from_numpy(rng.integers(-1, 1 << 31, N).astype(
+                "int32")).cuda()
+            for n in (1, 3, 8):
+                case("N=%d" % N, km, n, mode, pos)
+        N = 3 * T + 5
+        pos = torch.from_numpy(rng.integers(-1, 1 << 31, N).astype(
+            "int32")).cuda()
+        case("all sentinel", torch.full((N,), -1, dtype=torch.int64,
+                                        device="cuda"), 4, mode, pos)
+    case("one owner", (rows & ~7) | 5, 8, "merge")
+    case("one owner", ck[:1].expand(ck.numel()).contiguous(), 8, "lookup")
+    return out
+
+
 def check_route_merge(rng, rows, na, chunk_rows, sh, cap_builder, report):
     """route_rows and merge_reduce against their plain versions on the card,
     bit for bit: every mode at each n in ROUTE_N, at the builder's route
     size (one chunk of scan_compact rows) and at the merge size (the
     merge's rows), each with cap = its largest owner's rows (full, no
-    overflow) and at n = 4 with half of that (overflow); merge_reduce on
-    the merge's rows and on its edges; then both timed at the merge's
-    shape."""
+    overflow) and at n = 4 with half of that (overflow); route_rows' edges
+    (route_edges), two calls in a row and calls alternated on two streams
+    (its scratch's sequence numbers); merge_reduce on the merge's rows and
+    on its edges; then route_rows timed at the merge's shape (n in
+    ROUTE_TIMED_N), in builder mode on the chunk and in lookup mode on
+    config 3's queries, and merge_reduce at the merge's shape, each in
+    turns with its library route."""
     import torch
     from modimizer_tpu_torch import _build
     from modimizer_tpu_torch.ops.merge import merge_reduce, merge_reduce_ref
-    from modimizer_tpu_torch.ops.route import (owners, route_rows,
-                                               route_rows_ref)
+    from modimizer_tpu_torch.ops.route import (MODES, TILE_ROWS, owners,
+                                               route_rows, route_rows_ref)
     from modimizer_tpu_torch.probes._timing import bound_ms, nbytes
     from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    from modimizer_tpu_torch.probes.probe_route import (library_route,
+                                                        route_bytes,
+                                                        shape_rows)
+    L = _build.lib()
+    for mode, rows_a_tile in TILE_ROWS.items():
+        if L.mz_route_tile_rows(MODES[mode]) != rows_a_tile:
+            fail("route_rows: ops/route.py's TILE_ROWS[%r] = %d, the "
+                 "kernel's %d" % (mode, rows_a_tile,
+                                  L.mz_route_tile_rows(MODES[mode])))
     kmers = rows[0]
     ck, cp, base = chunk_rows
     hkw = dict(k=sh.k, w=sh.w, factor1=sh.factor1)
     lines, err = [], 0.0
+
+    def held(tag, got, want, n, cap, mode):
+        nonlocal err
+        e = max_abs_err(zip(got, want))
+        err = max(err, e)
+        lines.append([tag, mode, n, cap, bool(got.overflow)])
+        if e:
+            fail("route_rows != route_rows_ref at %s %s n=%d cap=%d"
+                 % (tag, mode, n, cap))
+
     before = _build.LAUNCHES["route_rows"]
     for size, km, pos, b0 in (("builder", ck, cp, base),
                               ("merge", kmers, None, 0)):
@@ -1646,12 +1694,34 @@ def check_route_merge(rng, rows, na, chunk_rows, sh, cap_builder, report):
                 got = route_rows(km, n, cap, mode, **args)
                 want = route_rows_ref(km, n, cap, mode, **args)
                 torch.cuda.synchronize()
-                e = max_abs_err(zip(got, want))
-                err = max(err, e)
-                lines.append([size, mode, n, cap, bool(got.overflow)])
-                if e or bool(got.overflow) != over:
-                    fail("route_rows != route_rows_ref at %s %s n=%d cap=%d"
-                         % (size, mode, n, cap))
+                held(size, got, want, n, cap, mode)
+                if bool(got.overflow) != over:
+                    fail("route_rows: overflow %s at %s %s n=%d cap=%d"
+                         % (bool(got.overflow), size, mode, n, cap))
+    for tag, km, n, cap, mode, kw in route_edges(kmers, ck, base, sh, rng):
+        got = route_rows(km, n, cap, mode, **kw)
+        torch.cuda.synchronize()
+        held(tag, got, route_rows_ref(km, n, cap, mode, **kw), n, cap, mode)
+    # two calls in a row, then calls alternated on two streams with no wait
+    # between: no call may take another's scratch flags as ready
+    x, y = kmers[:1 << 22], ck
+    in_a_row = [(x, 4), (y, 3)]
+    alternated = [(y, 3), (x, 4), (x, 8), (y, 3)]
+    caps = {(km.numel(), n): int(torch.bincount(
+        owners(km[km != -1], n, "merge"), minlength=n).max())
+        for km, n in in_a_row + alternated}
+    got = [route_rows(km, n, caps[km.numel(), n], "merge")
+           for km, n in in_a_row]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for i, (km, n) in enumerate(alternated):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(route_rows(km, n, caps[km.numel(), n], "merge"))
+    torch.cuda.synchronize()
+    for i, ((km, n), g) in enumerate(zip(in_a_row + alternated, got)):
+        cap = caps[km.numel(), n]
+        held("in a row" if i < len(in_a_row) else "two streams", g,
+             route_rows_ref(km, n, cap, "merge"), n, cap, "merge")
     if _build.LAUNCHES["route_rows"] - before != len(lines):
         fail("route_rows: %d launches for %d calls"
              % (_build.LAUNCHES["route_rows"] - before, len(lines)))
@@ -1667,40 +1737,58 @@ def check_route_merge(rng, rows, na, chunk_rows, sh, cap_builder, report):
         lines.append(["merge_reduce", name, k.numel(), int(got[4])])
         if e:
             fail("merge_reduce != merge_reduce_ref on %s" % name)
-    # times at the merge's shape (n = 1: every row to one owner)
+    # times: route_rows at the merge's shape for each n (cap = the fullest
+    # owner's rows), on the builder's chunk and on config 3's queries, each
+    # in turns with the library route; merge_reduce at the merge's shape
     N = kmers.numel()
+    q = shape_rows("lookup", False, "cuda")[0]
+    shapes = [("merge n=%d" % n, kmers, n, int(torch.bincount(
+        owners(kmers, n, "merge"), minlength=n).max()), "merge", {})
+        for n in ROUTE_TIMED_N]
+    shapes += [("builder chunk", ck, 1, cap_builder, "builder",
+                dict(hkw, pos=cp, base=base)),
+               ("lookup config3", q, 1, q.numel(), "lookup", hkw)]
+    route_t = {}
+    for tag, km, n, cap, mode, kw in shapes:
+        t = {"kernel": [], "library": []}
+        for who in ("kernel", "library", "library", "kernel"):
+            fn = route_rows if who == "kernel" else library_route
+            t[who].append(device_ms(lambda: fn(km, n, cap, mode, **kw),
+                                    20)[0])
+        b_ms, b_by = bound_ms(route_bytes(km.numel(), n, cap, mode))
+        route_t[tag] = dict(rows=km.numel(), n=n, cap=cap,
+                            ms=min(t["kernel"]),
+                            library_ms=min(t["library"]), bound_ms=b_ms,
+                            bound_by=b_by,
+                            bound_share=b_ms / min(t["kernel"]), turns=t)
     t = {}
-    for who, fn in (
-            ("route", lambda: route_rows(kmers, 1, N, "merge")),
-            ("route_lib", lambda: library_route(kmers, 1, N)),
-            ("route", lambda: route_rows(kmers, 1, N, "merge")),
-            ("route_lib", lambda: library_route(kmers, 1, N)),
-            ("merge", lambda: merge_reduce(*merged, N)),
-            ("merge_lib", lambda: library_merge(*merged)),
-            ("merge", lambda: merge_reduce(*merged, N)),
-            ("merge_lib", lambda: library_merge(*merged))):
+    for who, fn in (("merge", lambda: merge_reduce(*merged, N)),
+                    ("merge_lib", lambda: library_merge(*merged)),
+                    ("merge", lambda: merge_reduce(*merged, N)),
+                    ("merge_lib", lambda: library_merge(*merged))):
         t.setdefault(who, []).append(device_ms(fn, 20)[0])
     t["route_plain"] = device_ms(
         lambda: route_rows_ref(kmers, 1, N, "merge"), 3, 1)[0]
     t["merge_plain"] = device_ms(lambda: merge_reduce_ref(*merged, N),
                                  3, 1)[0]
-    t["route_builder"] = device_ms(lambda: route_rows(
-        ck, 1, cap_builder, "builder", pos=cp, base=base, **hkw), 20)[0]
     card = nvidia_smi_line()
-    rb_ms, rb_by = bound_ms(N * 8 + nbytes(*route_rows(kmers, 1, N,
-                                                       "merge")))
+    m1 = route_t["merge n=1"]
     mout = merge_reduce(*merged, N)
     mb_ms, mb_by = bound_ms(nbytes(*merged, *mout))
     report["route_rows"].update(
-        max_abs_err=err, ms=min(t["route"]), plain_ms=t["route_plain"],
-        bound_ms=rb_ms, bound_by=rb_by, bound_share=rb_ms / min(t["route"]),
-        library_ms=min(t["route_lib"]),
+        max_abs_err=err, ms=m1["ms"], plain_ms=t["route_plain"],
+        bound_ms=m1["bound_ms"], bound_by=m1["bound_by"],
+        bound_share=m1["bound_share"], library_ms=m1["library_ms"],
         library="owners + stable torch.sort of the owner keys + "
-        "searchsorted + gather, in turns with the kernel",
-        builder_chunk_ms=t["route_builder"],
-        timed="merge mode, n=1, %d rows; builder_chunk_ms: builder mode, "
-        "one chunk of 2^22 positions, %d rows, cap %d"
-        % (N, ck.numel(), cap_builder), card=card)
+        "searchsorted + gather (probe_route.library_route), in turns with "
+        "the kernel",
+        by_shape={k: {f: v[f] for f in ("rows", "n", "cap", "ms",
+                                        "bound_ms", "bound_share",
+                                        "library_ms")}
+                  for k, v in route_t.items()},
+        timed="merge mode, n=1, %d rows; by_shape: merge mode at n in %s, "
+        "builder mode on one chunk of 2^22 positions, lookup mode on "
+        "config 3's queries" % (N, list(ROUTE_TIMED_N)), card=card)
     report["merge_reduce"].update(
         max_abs_err=err, ms=min(t["merge"]), plain_ms=t["merge_plain"],
         bound_ms=mb_ms, bound_by=mb_by, bound_share=mb_ms / min(t["merge"]),
@@ -1710,7 +1798,7 @@ def check_route_merge(rng, rows, na, chunk_rows, sh, cap_builder, report):
         timed="%d received rows, %d heads, out_len %d"
         % (merged[0].numel(), int(mout[4]), N), card=card)
     say({"phase": "sharded_kernels", "cases": lines, "max_abs_err": err,
-         "turns_ms": t, "route_bound_ms": rb_ms, "merge_bound_ms": mb_ms,
+         "route_ms": route_t, "turns_ms": t, "merge_bound_ms": mb_ms,
          "card": card})
 
 

@@ -211,10 +211,13 @@ def _declare(L):
     L.mz_route_rows.argtypes = [
         p, p, u64, i64,        # kmers, pos (builder mode, nullable), base, N
         i32, u64, i32, u64,    # mode, factor1, shift, w
-        i32, i32, i32, p,      # n, cap, segments, tally scratch
+        i32, i32,              # n, cap
+        p, i64, u64,           # scratch, its bytes, the call's sequence
         p, p, p,               # index, counts, overflow
         p, p,                  # send_k, send_p (builder mode, nullable)
         p]                     # stream
+    L.mz_route_tile_rows.restype = ctypes.c_int
+    L.mz_route_tile_rows.argtypes = [i32]                 # mode
     L.mz_merge_reduce.restype = ctypes.c_int
     L.mz_merge_reduce.argtypes = [
         p, p, p, p,            # kmers, depth, info, rank

@@ -40,12 +40,16 @@ from .. import _build
 from .packed import as_i64, div_mod_owner, lsr
 
 MODES = {"builder": 0, "merge": 1, "lookup": 2}
-# owners whose per-warp tallies csrc/route.cu keeps in shared memory: eight
-# warps a block, 4 bytes an owner, 32 KB
+# owners whose tallies csrc/route.cu keeps in shared memory: (8 warps + 2)
+# ints an owner, 40 KB
 MAX_SHARDS = 1024
-SEG = 1024              # rows a warp's segment in csrc/route.cu
+# csrc/route.cu's tiles: 8 warps a block, 32 rows a lane (16 in builder
+# mode, which keeps each row's k-mer and position in registers too)
+WARPS = 8
+TILE_ROWS = {"builder": 4096, "merge": 8192, "lookup": 8192}
 SENTINEL = -1
 _M32 = 0xFFFFFFFF
+_SCRATCH = {}           # (device index, stream) -> [scratch, calls so far]
 
 
 class Routed(NamedTuple):
@@ -125,8 +129,34 @@ def route_rows_ref(kmers, n_shards, cap, mode, *, k=0, w=1, factor1=0,
 
 def gather_rows(index, col, pad):
     """``col`` through a route's index: col[index], ``pad`` in pad slots."""
+    if col.numel() == 0:                # no rows: every slot a pad
+        return torch.full(index.shape, pad, dtype=col.dtype,
+                          device=col.device)
     got = col[index.clamp(min=0).to(torch.int64)]
     return torch.where(index >= 0, got, torch.full_like(got, pad))
+
+
+def scratch_words(N, n_shards, mode):
+    """int64 words of csrc/route.cu's scratch: the ticket, a flag a tile
+    (one tile for N = 0), then n aggregates and n inclusive prefixes
+    (int32) a tile."""
+    t = max(1, -(-N // TILE_ROWS[mode]))
+    return 1 + t + t * n_shards
+
+
+def _scratch(dev, stream, words):
+    """This (device, stream)'s scratch, grown to ``words``, and the call's
+    sequence number.  A new scratch is zero: its ticket 0, and its flags of
+    sequence 0, which no call has.  A call leaves the ticket 0; its flags
+    carry its number, below every later call's, so none is read as ready
+    by a later call."""
+    ent = _SCRATCH.get((dev.index, stream))
+    if ent is None or ent[0].numel() < words:
+        calls = 0 if ent is None else ent[1]
+        ent = [torch.zeros(words, dtype=torch.int64, device=dev), calls]
+        _SCRATCH[(dev.index, stream)] = ent
+    ent[1] += 1
+    return ent[0], ent[1]
 
 
 def route_rows(kmers, n_shards, cap, mode, *, k=0, w=1, factor1=0,
@@ -142,8 +172,6 @@ def route_rows(kmers, n_shards, cap, mode, *, k=0, w=1, factor1=0,
     _check(kmers, n_shards, cap, mode, k, w, factor1, pos)
     dev = kmers.device
     n, N = n_shards, kmers.numel()
-    nseg = max(1, -(-N // SEG))
-    scratch = torch.empty(n * nseg, dtype=torch.int32, device=dev)
     index = torch.empty(n * cap, dtype=torch.int32, device=dev)
     counts = torch.empty(n, dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
@@ -157,12 +185,13 @@ def route_rows(kmers, n_shards, cap, mode, *, k=0, w=1, factor1=0,
     L = _build.lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch, seq = _scratch(dev, stream, scratch_words(N, n, mode))
         rc = L.mz_route_rows(
             kmers.data_ptr(), None if pos is None else pos.data_ptr(),
             ctypes.c_uint64(base & ((1 << 64) - 1)), N, MODES[mode],
             ctypes.c_uint64(factor1), shift, ctypes.c_uint64(w),
-            n, cap, nseg, scratch.data_ptr(), index.data_ptr(),
-            counts.data_ptr(), overflow.data_ptr(),
+            n, cap, scratch.data_ptr(), scratch.numel() * 8, seq,
+            index.data_ptr(), counts.data_ptr(), overflow.data_ptr(),
             None if send_k is None else send_k.data_ptr(),
             None if send_p is None else send_p.data_ptr(), stream)
     _build.check(rc, "route_rows")

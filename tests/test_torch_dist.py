@@ -3,9 +3,11 @@ builder, the sharded merge and the mesh DeviceTable) against the JAX
 package's on the conftest's virtual CPU mesh.
 
 In one process: ``div_mod_owner``; ``route_rows_ref`` against a numpy
-oracle, and a replay of ``csrc/route.cu``'s schedule (segments of 1,024
-rows a warp, ``__match_any_sync`` groups, the owner-major scan) against it,
-with two mutated schedules that must fail; ``merge_reduce_ref`` and a
+oracle, and a replay of ``csrc/route.cu``'s two launches (ticketed tiles
+whose blocks advance interleaved, warp ranks from ballots or match groups,
+the decoupled look-back over a scratch an earlier call left, the pads)
+against it, with three mutated schedules that must fail;
+``merge_reduce_ref`` and a
 replay of ``csrc/merge.cu``'s slots; ``sharded_merge_step`` at n = 1
 against JAX's on a one-device mesh, exactly; ``build_mesh`` without a
 group.  Then, for gloo groups of 2 and 4 ranks, each spawned once
@@ -45,8 +47,8 @@ from modimizer_tpu.parallel.lookup import (  # noqa: E402
 from modimizer_tpu_torch.ops.merge import (ROWS_PER_BLOCK,  # noqa: E402
                                            merge_reduce, merge_reduce_ref)
 from modimizer_tpu_torch.ops.packed import div_mod_owner  # noqa: E402
-from modimizer_tpu_torch.ops.route import (MAX_SHARDS, SEG,  # noqa: E402
-                                           route_rows, route_rows_ref)
+from modimizer_tpu_torch.ops.route import (  # noqa: E402
+    MAX_SHARDS, TILE_ROWS, WARPS, route_rows, route_rows_ref)
 from modimizer_tpu_torch.parallel import sharded as tsh  # noqa: E402
 from modimizer_tpu_torch.parallel.mesh import (  # noqa: E402
     Mesh, as_mesh, build_mesh)
@@ -148,6 +150,19 @@ def test_route_rows_ref_equals_oracle(mode, n, cap):
                for a, b in zip(same, got))
 
 
+@pytest.mark.parametrize("mode", ["builder", "merge", "lookup"])
+def test_route_rows_ref_no_rows(mode):
+    hkw = {} if mode == "merge" else dict(k=SH.k, w=SH.w,
+                                          factor1=SH.factor1)
+    extra = dict(pos=torch.zeros(0, dtype=torch.int32), base=5) \
+        if mode == "builder" else {}
+    got = route_rows(t64(np.zeros(0, U64)), 3, 4, mode, **hkw, **extra)
+    assert (got.index == -1).all() and got.index.numel() == 12
+    assert not got.counts.any() and not bool(got.overflow)
+    if mode == "builder":
+        assert (got.send_k == -1).all() and (got.send_p == -1).all()
+
+
 def test_route_rows_refuses_bad_arguments():
     k = t64(np.arange(10, dtype=U64))
     with pytest.raises(ValueError, match="n_shards"):
@@ -160,81 +175,230 @@ def test_route_rows_refuses_bad_arguments():
         route_rows(k.to(torch.int32), 2, 4, "merge")
 
 
-def route_lanes(kmers, n, cap, mode, mutant=None, **kw):
-    """csrc/route.cu's four passes, lane by lane: a warp walks SEG rows 32
-    at a time; a __match_any_sync group's first lane advances the warp's
-    tally of its owner; the tallies, owner-major, are scanned; a row's
-    slot is its segment's start within its owner plus the rows of its owner
-    seen so far in the segment plus its earlier lanes in the group.
-    ``mutant``: "no_segment_base" (each segment starts its owners at 0),
-    "tally_first" (the leader advances before the lanes read)."""
+class RouteScratch:
+    """csrc/route.cu's scratch, kept across calls: the ticket, a flag word
+    a tile (seq << 2 | status) and each tile's n aggregates and n inclusive
+    prefixes."""
+
+    def __init__(self, tiles, n):
+        self.ticket = 0
+        self.flags = np.zeros(tiles, np.int64)
+        self.agg = np.zeros((tiles, n), np.int64)
+        self.incl = np.zeros((tiles, n), np.int64)
+
+
+AGGREGATE, PREFIX = 1, 2
+
+
+def ballot(pred):
+    """The 32 lanes' predicate as a mask (bit l: lane l)."""
+    return int((np.asarray(pred, bool) << np.arange(32)).sum())
+
+
+def rank_step(own, n, tally, lane_tally):
+    """One step of a warp's ranking, as route.cu does it: each lane's rank
+    among its owner's rows so far.  For n a power of two up to 32 the
+    tallies are lane registers (``lane_tally``: lane o counts owner o) and
+    the groups ballots of the owner's bits (a lane's own owner's group, and
+    the group of the owner equal to the lane's number); else
+    __match_any_sync groups whose first lane advances ``tally``, the
+    warp's tallies in shared memory."""
+    lanes = np.arange(32)
+    below = (1 << lanes) - 1
+    if n & (n - 1) == 0 and n <= 32:
+        same = np.full(32, ballot(own >= 0), np.int64)
+        ours = same.copy()
+        for b in range(n.bit_length() - 1):
+            v = ballot((own >> b) & 1)
+            same &= np.where((own >> b) & 1, v, ~v & 0xFFFFFFFF)
+            ours &= np.where((lanes >> b) & 1, v, ~v & 0xFFFFFFFF)
+        hv = lane_tally[own & 31]
+        lane_tally += popc(ours)
+        return hv + popc(same & below)
+    m = np.array([ballot(own == o) for o in own])
+    lead = np.array([(int(v) & -int(v)).bit_length() - 1 for v in m])
+    hv = np.zeros(32, np.int64)
+    for lane in np.nonzero((own >= 0) & (lead == lanes))[0]:
+        hv[lane] = tally[own[lane]]
+        tally[own[lane]] += popc([m[lane]])[0]
+    return hv[lead & 31] + popc(m & below)
+
+
+def popc(x):
+    return np.array([bin(int(v) & 0xFFFFFFFF).count("1") for v in x])
+
+
+def route_tiles_lanes(kmers, n, cap, mode, scratch, seq, order, mutant=None,
+                      **kw):
+    """csrc/route.cu's two launches, lane by lane, with the tiles' blocks
+    interleaved: ``order`` is a numpy Generator (the next block to advance
+    drawn at random among those that can) or "reverse" (every block draws
+    its ticket, then the latest that can advance does).  A block advances
+    one phase at a time: its ticket; its tallies and published aggregates
+    (tile 0: its prefix); its look-back, which waits while a flag of its
+    window lacks this call's ``seq``; its published prefix (and the last
+    tile's counts); its stores.  ``scratch`` (a RouteScratch) may hold an
+    earlier call's descriptors.  Then the pad launch.  Returns (index,
+    counts, overflow).  Mutants: "aggregate_as_prefix" (the look-back stops
+    at the first ready flag and takes its aggregate as a prefix),
+    "stale_seq" (a flag of any seq is ready), "pad_live" (the pads start
+    one slot early)."""
     own_all = np_owners(kmers, n, mode, **kw)
-    N = len(kmers)
-    nseg = max(1, -(-N // SEG))
-    tally = np.zeros((n, nseg), np.int64)
-
-    def steps(s):
-        for st in range(0, SEG, 32):
-            if s * SEG + st >= N:
-                return
-            i = s * SEG + st + np.arange(32)
-            yield i, np.where(i < N, own_all[np.minimum(i, N - 1)], -1)
-
-    for s in range(nseg):                                   # pass 1
-        for _i, own in steps(s):
-            for o in set(own.tolist()) - {-1}:
-                tally[o, s] += int((own == o).sum())        # the leader
-    flat = tally.reshape(-1)                                # pass 2
-    ex = (np.cumsum(flat) - flat).reshape(n, nseg)
-    counts = tally.sum(1)
+    N, T = len(kmers), TILE_ROWS[mode]
+    R = T // (32 * WARPS)
+    ntiles = max(1, -(-N // T))
     index = np.full(n * cap, -2, np.int64)
-    for s in range(nseg):                                   # pass 3
-        f = ex[:, s] - ex[:, 0]
-        if mutant == "no_segment_base":
-            f = np.zeros(n, np.int64)
-        for i, own in steps(s):
-            if mutant == "tally_first":
-                for o in set(own.tolist()) - {-1}:
-                    f[o] += int((own == o).sum())
-            r = [f[o] + int((own[:lane] == o).sum()) if o >= 0 else 0
-                 for lane, o in enumerate(own)]
-            if mutant != "tally_first":
-                for o in set(own.tolist()) - {-1}:
-                    f[o] += int((own == o).sum())
-            for lane, o in enumerate(own):
-                if o >= 0 and r[lane] < cap:
-                    assert index[o * cap + r[lane]] == -2, "a slot twice"
-                    index[o * cap + r[lane]] = i[lane]
-    for j in range(n * cap):                                # pass 4
-        if j % cap >= counts[j // cap]:
-            assert index[j] == -2, "a pad slot written"
-            index[j] = -1
-    return index.astype(np.int32), counts.astype(np.int32)
+    out = {}
+
+    def ready(q):
+        f = int(scratch.flags[q])
+        return f & 3 if (mutant == "stale_seq" or f >> 2 == seq) else 0
+
+    def block():
+        t = scratch.ticket                                   # atomicInc
+        scratch.ticket = 0 if t >= ntiles - 1 else t + 1
+        yield True
+        rows = t * T + np.arange(T).reshape(WARPS, R, 32)
+        own = np.where(rows < N, own_all[np.minimum(rows, max(N - 1, 0))]
+                       if N else -1, -1)
+        tally = np.zeros((WARPS, n), np.int64)
+        rank = np.zeros_like(rows)
+        for w in range(WARPS):
+            lane_tally = np.zeros(32, np.int64)
+            for s in range(R):
+                rank[w, s] = rank_step(own[w, s], n, tally[w], lane_tally)
+            if n & (n - 1) == 0 and n <= 32:
+                tally[w] = lane_tally[:n]
+        base = np.cumsum(tally, 0) - tally                   # warp bases
+        agg = tally.sum(0)
+        if t == 0:
+            scratch.incl[0] = agg
+            scratch.flags[0] = seq << 2 | PREFIX
+        else:
+            scratch.agg[t] = agg
+            scratch.flags[t] = seq << 2 | AGGREGATE
+        yield True
+        ex = np.zeros(n, np.int64)
+        p = t - 1
+        while p >= 0:
+            window = range(p, max(p - LOOKBACK, -1), -1)
+            while not all(ready(q) for q in window):
+                yield False                                  # spinning
+            if mutant == "aggregate_as_prefix":
+                ex += scratch.agg[p]            # the nearest tile's, alone
+                break
+            st = [ready(q) for q in window]
+            last = next((i for i, v in enumerate(st) if v == PREFIX), None)
+            found = last is not None
+            last = last if found else len(st) - 1
+            for i in range(last):
+                ex += scratch.agg[p - i]
+            ex += (scratch.incl if found else scratch.agg)[p - last]
+            p = -1 if found else p - last - 1
+        yield True
+        incl = ex + agg
+        if t > 0:
+            scratch.incl[t] = incl
+            scratch.flags[t] = seq << 2 | PREFIX
+        if t == ntiles - 1:
+            out["counts"] = incl.copy()
+        yield True
+        for w in range(WARPS):
+            for s in range(R):
+                for lane in range(32):
+                    o = own[w, s, lane]
+                    if o < 0:
+                        continue
+                    r = ex[o] + base[w, o] + rank[w, s, lane]
+                    if r < cap:
+                        assert index[o * cap + r] == -2, "a slot twice"
+                        index[o * cap + r] = rows[w, s, lane]
+
+    waiting = [block() for _ in range(ntiles)]
+    live = []
+    if order == "reverse":             # every ticket drawn first
+        for b in waiting:
+            next(b)
+        live, waiting = waiting, []
+    while live or waiting:
+        if order == "reverse":         # the latest block that can advance
+            for b in reversed(live):
+                went = next(b, None)
+                if went is None:
+                    live.remove(b)
+                if went is not False:
+                    break
+            else:
+                raise AssertionError("every block spins: a deadlock")
+            continue
+        i = int(order.integers(len(live) + bool(waiting)))
+        if i == len(live):
+            live.append(waiting.pop(0))
+        if next(live[i], None) is None:
+            live.pop(i)
+    assert scratch.ticket == 0, "the ticket is not left 0"
+    counts = out["counts"]
+    for o in range(n):                                       # route_pad
+        c = min(int(counts[o]), cap)
+        if mutant == "pad_live":
+            c = max(c - 1, 0)
+        gx = min(-(-cap // PAD_TPB), max(1, PAD_BLOCKS // n))
+        starts = c + np.arange(gx * PAD_TPB)
+        for r0 in starts[starts < cap]:
+            sl = slice(o * cap + r0, (o + 1) * cap, gx * PAD_TPB)
+            assert (index[sl] == -2).all(), "a live slot padded"
+            index[sl] = -1
+    assert (index != -2).all(), "a slot never written"
+    return (index.astype(np.int32), counts.astype(np.int32),
+            bool((counts > cap).any()))
 
 
-@pytest.mark.parametrize("mode,n,cap,N", [("builder", 3, 2000, 4000),
-                                          ("merge", 4, 300, 2500),
-                                          ("lookup", 2, 5000, 3000),
-                                          ("merge", 1, 1000, 0)])
-def test_route_kernel_schedule_equals_ref(mode, n, cap, N):
-    kmers, _pos = route_inputs(N + n, N)
+PAD_TPB, PAD_BLOCKS = 256, 132 * 8
+LOOKBACK = 32 * WARPS      # tiles a look-back step reads
+SCHEDULES = [("builder", 3, 2000, 4000), ("merge", 4, 300, 2500),
+             ("lookup", 2, 5000, 3000), ("merge", 1, 1000, 0),
+             ("merge", 1, 3 * 8192 + 5, 3 * 8192 + 5),
+             ("merge", MAX_SHARDS, 12, 9000), ("builder", 8, 1400, 9000)]
+
+
+def replay_twice(mode, n, cap, N, order, mutant=None):
+    """An earlier call's route on the same scratch (other rows, a third of
+    them sentinels, so its descriptors differ), then this one's: each
+    against the oracle unless it is the mutant's."""
     hkw = {} if mode == "merge" else dict(k=SH.k, w=SH.w,
                                           factor1=SH.factor1)
+    tiles = max(1, -(-N // TILE_ROWS[mode]))
+    scratch = RouteScratch(tiles, n)
+    stale, _ = route_inputs(N + 99, tiles * TILE_ROWS[mode], 0.3)
+    got = route_tiles_lanes(stale, n, cap, mode, scratch, 1, order, **hkw)
+    assert all(np.array_equal(a, b) for a, b in
+               zip(got, route_oracle(stale, n, cap, mode, **hkw)))
+    kmers, _pos = route_inputs(N + n, N)
     want = route_oracle(kmers, n, cap, mode, **hkw)
-    index, counts = route_lanes(kmers, n, cap, mode, **hkw)
-    assert np.array_equal(index, want[0])
-    assert np.array_equal(counts, want[1])
+    got = route_tiles_lanes(kmers, n, cap, mode, scratch, 2, order,
+                            mutant=mutant, **hkw)
+    return got, want
 
 
-@pytest.mark.parametrize("mutant", ["no_segment_base", "tally_first"])
+@pytest.mark.parametrize("mode,n,cap,N", SCHEDULES)
+def test_route_kernel_schedule_equals_ref(mode, n, cap, N):
+    for order in (np.random.default_rng(N + n), "reverse"):
+        (index, counts, over), want = replay_twice(mode, n, cap, N, order)
+        assert np.array_equal(index, want[0])
+        assert np.array_equal(counts, want[1])
+        assert over == want[2]
+
+
+@pytest.mark.parametrize("mutant", ["aggregate_as_prefix", "stale_seq",
+                                    "pad_live"])
 def test_route_kernel_schedule_mutants_fail(mutant):
-    kmers, _pos = route_inputs(3, 3000)
-    want = route_oracle(kmers, 3, 3000, "merge")
     try:
-        index, _counts = route_lanes(kmers, 3, 3000, "merge", mutant=mutant)
+        (index, counts, _over), want = replay_twice(
+            "merge", 3, 12000, 4 * 8192 + 7, "reverse", mutant=mutant)
     except AssertionError:
         return
-    assert not np.array_equal(index, want[0])
+    assert not (np.array_equal(index, want[0])
+                and np.array_equal(counts, want[1]))
 
 
 # --------------------------------------------------------- merge_reduce

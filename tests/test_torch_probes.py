@@ -16,7 +16,7 @@ import torch
 from modimizer_tpu_torch.probes import (probe_chain_time, probe_densify,
                                         probe_front, probe_front_mxu,
                                         probe_pallas_front,
-                                        probe_pallas_parts,
+                                        probe_pallas_parts, probe_route,
                                         probe_scan_compact)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -89,6 +89,29 @@ def test_probe_densify_runs_on_cpu(capsys, argv, shapes):
 def test_probe_densify_bad_arguments_exit_nonzero(argv):
     with pytest.raises(SystemExit) as e:
         probe_densify.main(argv + ["--small"], device="cpu")
+    assert e.value.code not in (0, None)
+
+
+@pytest.mark.parametrize("argv,shapes", [
+    (["--small"], [("merge", 1), ("merge", 2), ("merge", 4), ("merge", 8),
+                   ("builder", 1), ("lookup", 1)]),
+    (["--small", "lookup"], [("lookup", 1)])])
+def test_probe_route_runs_on_cpu(capsys, argv, shapes):
+    assert probe_route.main(argv, device="cpu") == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(x["shape"], x["n"]) for x in lines] == shapes
+    for x in lines:
+        # the kernel's wrapper (its plain version here) and the library
+        # route against route_rows_ref
+        assert x["check"] == {"current": "match", "library": "match"}
+        assert x["rows"] > 0 and x["cap"] >= x["rows"] / x["n"]
+        assert x["device"] == "cpu" and x["ms"] is None
+
+
+@pytest.mark.parametrize("argv", [["bogus"], ["--baseline", "old.cu"]])
+def test_probe_route_bad_arguments_exit_nonzero(argv):
+    with pytest.raises(SystemExit) as e:
+        probe_route.main(argv + ["--small"], device="cpu")
     assert e.value.code not in (0, None)
 
 
