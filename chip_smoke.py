@@ -10,13 +10,17 @@ against the port's host path, runs the scan-front and
 compaction-primitive probes on the card, then the mesh paths through a
 world-size-1 NCCL group (``sharded``: the routing and merge kernels, the
 sharded merge of two real-size modsets against the native merge, the mesh
-lookup table, the routed builder and a snapshot).
+lookup table, the routed builder and a snapshot), the all-window
+minimizer scan of a 64 Mbp sequence (``minimizer``), colinear chaining on
+the chaining benchmark's seeds and on config 3's (``chain``), and the
+multi-process build and ``modutils`` under torchrun (``multihost``).
 
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --phases env,build,kernels --small
     python3 chip_smoke.py --phases env,build,kernels,probes
     python3 chip_smoke.py --phases env,build,apps
     python3 chip_smoke.py --phases env,build,sharded
+    python3 chip_smoke.py --phases env,build,minimizer,chain,multihost
 
 Prints one JSON line per phase, then a ``{"kernels": [...]}`` line (each
 kernel with its launches on the main path, its error against its plain
@@ -43,7 +47,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "main", "overflow", "profile", "apps",
-          "probes", "sharded")
+          "probes", "sharded", "minimizer", "chain", "multihost")
 KW_PAIRS = [(16, 16), (11, 10), (13, 31), (19, 31), (24, 16), (31, 31)]
 # the emit test's edges on both k-mer widths: w = 1 (every position emits)
 # and w = 2^32 + 1 (a 32-bit hash is a multiple only when it is 0)
@@ -1953,6 +1957,638 @@ def phase_sharded(small, work, launches, report):
          "card": nvidia_smi_line()})
 
 
+# ---------------------------------------------------------------- minimizer
+
+MIN_KW = ((19, 31), (16, 16))     # the reference's defaults, and k16 w16
+MIN_CHUNK = 1 << 22
+# w = 255, on the kernel's tile path, and 300, wider than its tile
+MIN_EDGE_W = (255, 300)
+MIN_EDGE_LEN = 8_000_000
+MIN_BRUTE_LEN = 1_000_000
+
+
+def minimizer_chunk_inputs(sh, codes, s, chunk):
+    """The arguments minimizer_scan gives the kernel for its chunk at hash
+    position s: (sw on the card, m_ext, n_win, base, Cext)."""
+    import numpy as np
+    import torch
+    from modimizer_tpu_torch.native import lib as native_lib
+    k, w = sh.k, sh.w
+    npos = len(codes) - k + 1
+    C = min(chunk, ((npos + 63) // 64) * 64)
+    cext = ((C + 2 * (w - 1) + 31) // 32) * 32
+    lo = min(w - 1, s)
+    base = s - lo
+    seg = np.ascontiguousarray(codes[base:base + cext + k - 1])
+    sw = np.empty(cext // 32 + 1, np.uint64)
+    native_lib().pk_pack2(seg, len(seg), sw, len(sw))
+    return (torch.from_numpy(sw.view(np.int64)).to("cuda"),
+            min(cext, npos - base), npos - w + 1, base, cext)
+
+
+def plain_minimizer_scan(mz, sh, codes):
+    """minimizer_scan on the card with each chunk's plain version in the
+    kernel's place."""
+    kernel = mz.minimizer_chunk
+    mz.minimizer_chunk = mz.minimizer_chunk_ref
+    try:
+        return mz.minimizer_scan(sh, codes, chunk=MIN_CHUNK, device="cuda")
+    finally:
+        mz.minimizer_chunk = kernel
+
+
+def window_brute_force(sh, codes):
+    """Every position whose hash is the minimum of a full w-window that
+    covers it (all of a window's ties), by numpy over every window."""
+    import numpy as np
+    _km, hashes, _f = sh.scan(codes)
+    win = np.lib.stride_tricks.sliding_window_view(hashes, sh.w)
+    s, j = np.nonzero(win == win.min(axis=1)[:, None])
+    return np.unique(s + j)
+
+
+def phase_minimizer(small, launches, report):
+    """The all-window minimizer scan (ops/minimizer.py) on the card: one
+    uniform ACGT sequence of config 3's reference length at k19 w31 and
+    k16 w16 (the main path: launch counts zeroed before each scan and read
+    after), each whole output against the plain route (minimizer_chunk_ref
+    on the card, chunk by chunk); the kernel held bit for bit against
+    minimizer_chunk_ref on a middle chunk (halos on both sides) and timed
+    with its plain version, its bound and the two window passes of
+    x.unfold(0, w, 1); w = 255 (the tile path's widest test) and 300
+    (the wide path) on a cut; the all-window set against brute force on a
+    1 Mbp cut."""
+    import numpy as np
+    import torch
+    from modimizer_tpu_torch import _build
+    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.ops import minimizer as mz
+    from modimizer_tpu_torch.probes._timing import bound_ms, nbytes
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    L = _build.lib()
+    if (L.mz_minimizer_tile(), L.mz_minimizer_w_tile()) != (mz.TILE,
+                                                           mz.W_TILE):
+        fail("minimizer: ops/minimizer.py's TILE, W_TILE = %d, %d, the "
+             "kernel's %d, %d" % (mz.TILE, mz.W_TILE, L.mz_minimizer_tile(),
+                                  L.mz_minimizer_w_tile()))
+    n = 2_000_000 if small else CONFIG3["ref_len"]
+    t0 = time.perf_counter()
+    codes = np.random.default_rng(SEED).integers(0, 4, n).astype(np.uint8)
+    setup_s = time.perf_counter() - t0
+    err, cases, main = 0.0, [], None
+    kws = [(k, w, n) for k, w in MIN_KW] + [
+        (16, w, min(n, MIN_EDGE_LEN)) for w in MIN_EDGE_W]
+    for k, w, length in kws:
+        sh = Seqhash.create(k, w, SEED)
+        seq = codes[:length]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        got = mz.minimizer_scan(sh, seq, chunk=MIN_CHUNK, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = _build.LAUNCHES["minimizer"]
+        if not n_launch:
+            fail("minimizer k%d w%d: the kernel was never launched" % (k, w))
+        if length == n:
+            launches["minimizer"] = launches.get("minimizer", 0) + n_launch
+        t0 = time.perf_counter()
+        want = plain_minimizer_scan(mz, sh, seq)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail("minimizer k%d w%d: minimizer_scan differs from the plain "
+                 "route" % (k, w))
+        # the kernel against its plain version on a middle chunk
+        npos = length - k + 1
+        s = MIN_CHUNK if npos > 2 * MIN_CHUNK else 0
+        sw, m_ext, n_win, base, cext = minimizer_chunk_inputs(
+            sh, seq, s, MIN_CHUNK)
+        args = dict(k=k, w=w, factor1=sh.factor1, C=cext)
+        kout = mz.minimizer_chunk(sw, m_ext, n_win, base, **args)
+        rout = mz.minimizer_chunk_ref(sw, m_ext, n_win, base, **args)
+        torch.cuda.synchronize()
+        e = max_abs_err(zip(kout, rout))
+        err = max(err, e)
+        if e:
+            fail("minimizer k%d w%d: minimizer_chunk != minimizer_chunk_ref"
+                 % (k, w))
+        ms = device_ms(lambda: mz.minimizer_chunk(sw, m_ext, n_win, base,
+                                                  **args), 20)[0]
+        plain_ms = device_ms(lambda: mz.minimizer_chunk_ref(
+            sw, m_ext, n_win, base, **args), 3, 1)[0]
+        hh = torch.where(torch.arange(cext, device="cuda") < m_ext,
+                         rout[0], mz.PAD)
+        pad = torch.full((w - 1,), mz.PAD, dtype=torch.int64, device="cuda")
+
+        def unfold_passes():
+            a = torch.cat([hh, pad]).unfold(0, w, 1).amin(1)
+            return torch.cat([pad * 0, a]).unfold(0, w, 1).amax(1)
+        near_ms = device_ms(unfold_passes, 10)[0]
+        b_ms, b_by = bound_ms(nbytes(sw, *kout))
+        line = {"k": k, "w": w, "bp": length, "emitted": len(got[1]),
+                "scan_s": wall, "plain_scan_s": plain_wall,
+                "launches": n_launch, "path": "tile" if w <= mz.W_TILE
+                else "wide", "chunk_C": cext, "ms": ms, "plain_ms": plain_ms,
+                "unfold_ms": near_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": b_ms / ms}
+        cases.append(line)
+        say(dict({"phase": "minimizer", "identical": True}, **line))
+        if main is None:
+            main = line
+    # the all-window set against brute force on a 1 Mbp cut (k19 w31)
+    sh = Seqhash.create(*MIN_KW[0], SEED)
+    cut = codes[:MIN_BRUTE_LEN]
+    got = mz.minimizer_scan(sh, cut, chunk=1 << 18, device="cuda")[1]
+    want = window_brute_force(sh, cut)
+    if not np.array_equal(got, want):
+        fail("minimizer: the all-window set differs from brute force")
+    report["minimizer"].update(
+        max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        bound_share=main["bound_share"], library_ms=None,
+        library="none: no PyTorch call computes the all-window minimizer "
+        "set", nearest_call="x.unfold(0, w, 1).amin(1), then .amax(1) of "
+        "the masked minima: the two window passes alone, no hashing or "
+        "emit", nearest_ms=main["unfold_ms"],
+        timed="a middle chunk of %d positions at k%d w%d"
+        % (main["chunk_C"], main["k"], main["w"]), cases=cases)
+    say({"phase": "minimizer", "bp": n, "setup_s": setup_s,
+         "brute_force_bp": len(cut), "brute_force_identical": True,
+         "card": nvidia_smi_line()})
+
+
+# ---------------------------------------------------------------- chain
+
+CHAIN_READS = 100_000             # scripts/bench_chain.py's default size
+CHAIN_SPR = 30
+CHAIN_ORACLE_READS = 5_000        # bench_chain's reads the oracle replays
+
+
+def bench_chain_case(n_reads, spr, n_mods=200000, n_refs=24, seed=1):
+    """scripts/bench_chain.py's make_case (:17-42): colinear-ish
+    occurrences so that real blocks form, runs of consecutive mods with
+    10 % misses.  Returns (ref-like, sidx, spos, seed_off)."""
+    import types
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    info = np.zeros(n_mods + 1, np.uint8)
+    info[1:] = rng.choice([1, 1, 1, 2, 3], n_mods).astype(np.uint8)
+    n_occ = np.where((info & 3) == 2, 2, 1)
+    n_occ[0] = 1
+    loc = np.concatenate([[0], np.cumsum(n_occ[:-1])]).astype(np.uint32)
+    total = int(n_occ.sum())
+    rev = (np.arange(total, dtype=np.uint32)
+           + rng.integers(-3, 4, total).astype(np.int64)).clip(
+               0, total - 1).astype(np.uint32)
+    bounds = np.sort(rng.choice(total, n_refs - 1, replace=False))
+    rid = np.searchsorted(bounds, np.arange(total),
+                          side="right").astype(np.uint32)
+    offs = (np.arange(total, dtype=np.uint32) * 13) & 0xFFFFFF
+    ns = rng.integers(max(1, spr - 10), spr + 10, n_reads)
+    seed_off = np.concatenate([[0], np.cumsum(ns)]).astype(np.int64)
+    S = int(seed_off[-1])
+    base = rng.integers(1, n_mods - 200, n_reads)
+    within = np.arange(S) - np.repeat(seed_off[:-1], ns)
+    sidx = (np.repeat(base, ns) + within // 2).astype(np.uint32)
+    sidx[rng.random(S) < 0.1] = 0
+    spos = (within * 16).astype(np.int64)
+    ref = types.SimpleNamespace(rev=rev, loc=loc, id=rid, offset=offs,
+                                ms=types.SimpleNamespace(info=info))
+    return ref, sidx, spos, seed_off
+
+
+def chain_oracle(ref, sidx, spos, seed_off):
+    """Literal transcription of modmap.c:216-280 (the loc0 == 0 "no block"
+    quirk, the copy-2 retry, the final n2 > 2 gate), as
+    tests/test_chain.py:20-76."""
+    info = ref.ms.info
+    out_all = []
+    for rd in range(len(seed_off) - 1):
+        out = []
+        loc0 = locN = i0 = iN = 0
+        p0 = pN = 0
+        n1 = n2 = 0
+        for t in range(seed_off[rd], seed_off[rd + 1]):
+            idx = sidx[t]
+            if idx == 0 or (info[idx] & 3) == 3:
+                continue
+            loc = int(ref.rev[ref.loc[idx]])
+            is1 = (info[idx] & 3) == 1
+
+            def end_block(loc):
+                if ref.id[loc] != ref.id[loc0]:
+                    return True
+                if loc0 < locN:
+                    if loc < locN:
+                        return True
+                    d = locN - loc0 - iN + i0
+                    if d > 50 or d < -50:
+                        return True
+                elif loc0 > locN:
+                    if loc > locN:
+                        return True
+                    d = loc0 - locN - iN + i0
+                    if d > 50 or d < -50:
+                        return True
+                return False
+
+            end = (loc0 == 0) or end_block(loc)
+            if end and loc0 and not is1:
+                loc = int(ref.rev[ref.loc[idx] + 1])
+                end = end_block(loc)
+            if end:
+                if n1 > 2:
+                    out.append((p0, pN, loc0, locN, n1, n2, 0))
+                n1 = n2 = 0
+                loc0 = loc
+                i0 = t - seed_off[rd]
+                p0 = int(spos[t])
+            if is1:
+                n1 += 1
+            else:
+                n2 += 1
+            locN = loc
+            iN = t - seed_off[rd]
+            pN = int(spos[t])
+        if n2 > 2:
+            out.append((p0, pN, loc0, locN, n1, n2, 1))
+        out_all.append(out)
+    return out_all
+
+
+def native_chain_s(ref, sidx, spos, seed_off, names, qids, qlen):
+    """The native automaton and its Q/M text (mm_query_emit) on the seeds,
+    both outputs to /dev/null: wall s."""
+    import numpy as np
+    from modimizer_tpu_torch.native import lib as native_lib
+
+    def blob(strings):
+        parts = [x.encode("latin1") + b"\0" for x in strings]
+        off = np.zeros(len(parts) + 1, np.int64)
+        off[1:] = np.cumsum([len(x) for x in parts])
+        return b"".join(parts), off
+    nm, nm_off = blob(names)
+    qb, q_off = blob(qids)
+    devnull = os.open(os.devnull, os.O_WRONLY)
+    try:
+        t0 = time.perf_counter()
+        native_lib().mm_query_emit(
+            np.ascontiguousarray(seed_off, np.int64),
+            np.ascontiguousarray(sidx, np.uint32),
+            np.ascontiguousarray(spos, np.int64),
+            np.ascontiguousarray(ref.ms.info, np.uint8),
+            np.ascontiguousarray(ref.rev, np.uint32),
+            np.ascontiguousarray(ref.loc, np.uint32),
+            np.ascontiguousarray(ref.offset, np.uint32),
+            np.ascontiguousarray(ref.id, np.uint32), len(ref.rev), nm,
+            nm_off, qb, q_off, np.ascontiguousarray(qlen, np.int64),
+            len(seed_off) - 1, 0, devnull, devnull)
+        return time.perf_counter() - t0
+    finally:
+        os.close(devnull)
+
+
+def config3_seeds(small, work, rng):
+    """Config 3's reference (indexed by the port on the card, -K 24 -W 31)
+    and the seeds of its 3,000 reads of 10 kbp, as modmap -q makes them
+    (the scanner and the device table's lookup): (ref, sidx, spos,
+    seed_off, read ids, read lengths)."""
+    import numpy as np
+    import torch
+    from modimizer_tpu_torch.cli import modmap
+    from modimizer_tpu_torch.core.modset import Modset
+    from modimizer_tpu_torch.core.reference import Reference
+    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.io import seqio
+    from modimizer_tpu_torch.ops.seqhash import ModimizerScanner
+    c3 = dict(CONFIG3, **({"ref_len": SMALL["ref_len"], "n_reads":
+                          SMALL["n_reads"]} if small else {}))
+    genome = rng.integers(0, 4, c3["ref_len"]).astype(np.uint8)
+    ref_fa = os.path.join(work, "chain_ref.fa")
+    reads_fa = os.path.join(work, "chain_reads.fa")
+    write_fasta(ref_fa, [("chr20", genome)])
+    write_fasta(reads_fa, sampled_reads(rng, genome, c3["n_reads"],
+                                        c3["read_len"], c3["sub"],
+                                        c3["rc_every"]))
+    del genome
+    dev = torch.device("cuda")
+    ms = Modset(Seqhash.create(c3["k"], c3["w"], 17), 24 if small else 28,
+                0)
+    ref = Reference(ms, 1 << 26)
+    ref.fasta_read(ref_fa, io.StringIO(), is_add=True, device=dev)
+    batch, _t = seqio.read_seq_file(reads_fa, seqio.dna2index_n0(),
+                                    is_qual=False, want_ids=True)
+    scanner = ModimizerScanner(ms.hasher, want_isf=False, device=dev)
+    kmers, rid, rpos, _f = scanner.scan_batch(batch)
+    sidx = np.ascontiguousarray(modmap._lookup(ref, scanner, kmers),
+                                np.uint32)
+    seed_off = np.searchsorted(rid, np.arange(batch.n + 1)).astype(np.int64)
+    names = [ref.dict.name(i) for i in range(ref.dict.max)]
+    return (ref, sidx, np.ascontiguousarray(rpos, np.int64), seed_off,
+            names, list(batch.ids), np.asarray(batch.lengths, np.int64))
+
+
+def chain_bytes(la, n_reads, n_records, n_live):
+    """What chain_records' kernel work must move: each seed's planes (five
+    u32 and a flag byte), the seed offsets, an idmap entry a live seed,
+    the counts, record offsets and records."""
+    return (la.numel() * 21 + (n_reads + 1) * 8 + n_live * 4
+            + n_reads * 4 + (n_reads + 1) * 8 + n_records * 28)
+
+
+def phase_chain(small, work, launches, report):
+    """Colinear chaining (parallel/chain.py) on the card: chain_records on
+    scripts/bench_chain.py's case at its own size (100,000 reads of 20-40
+    seeds; the main path: launch counts zeroed before and read after),
+    held against the plain driver (chain_emit_ref on the card), its first
+    5,000 reads against the literal oracle, and timed beside the native
+    mm_query_emit on the same seeds (text to /dev/null);
+    the kernel's slots form against chain_scan_ref on the same seeds as
+    [R, S] planes, bit for bit, at a cap that fits and one that
+    overflows; then config 3's real seeds (the port's modmap seeding, 3,000
+    reads of 10 kbp at -K 24 -W 31): chain_records against the literal
+    oracle of modmap.c:216-280 and timed beside mm_query_emit."""
+    import numpy as np
+    import torch
+    from modimizer_tpu_torch import _build
+    from modimizer_tpu_torch.parallel import chain as ch
+    from modimizer_tpu_torch.probes._timing import bound_ms
+    from modimizer_tpu_torch.probes._timing import time_ms as device_ms
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    ref, sidx, spos, off = bench_chain_case(
+        10_000 if small else CHAIN_READS, CHAIN_SPR)
+    setup_s = time.perf_counter() - t0
+    R = len(off) - 1
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = ch.chain_records(ref, sidx, spos, off, device=dev)
+    first_s = time.perf_counter() - t0
+    n_launch = _build.LAUNCHES["chain_scan"]
+    if not n_launch:
+        fail("chain: the kernel was never launched")
+    launches["chain_scan"] = launches.get("chain_scan", 0) + n_launch
+    t0 = time.perf_counter()
+    got2 = ch.chain_records(ref, sidx, spos, off, device=dev)
+    warm_s = time.perf_counter() - t0
+    qlen = np.full(R, CHAIN_SPR * 16 + 50, np.int64)
+    native_s = [native_chain_s(ref, sidx, spos, off,
+                               ["ref%d" % i for i in range(24)],
+                               ["q%d" % i for i in range(R)], qlen)
+                for _ in range(2)]
+    # the plain driver on the card, and the kernel's two forms
+    la, lb, ia, ib, is1, live, ps = ch.seed_planes(ref, sidx, spos)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                                ).to(dev)
+    planes = [put(x) for x in (la, lb, ia, ib)]
+    flags = ch.seed_flags(torch.from_numpy(is1), torch.from_numpy(live)
+                          ).to(dev)
+    pos_t, idmap = put(ps), put(np.asarray(ref.id, np.uint32))
+    off_t = torch.from_numpy(off).to(dev)
+    t0 = time.perf_counter()
+    want = ch.chain_emit_ref(*planes, flags, pos_t, idmap, off_t)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    have = ch.chain_emit(*planes, flags, pos_t, idmap, off_t)
+    err = max_abs_err(zip(have, want))
+    rows = [tuple(r) for r in want[0].cpu().numpy().view(
+        np.uint32).tolist()]
+    b = want[1].cpu().tolist()
+    if err or got != got2 or got != [rows[x:y] for x, y in zip(b[:-1],
+                                                              b[1:])]:
+        fail("chain: chain_records differs from the plain driver")
+    n_oracle = min(R, CHAIN_ORACLE_READS)
+    if [[tuple(int(v) for v in r) for r in g] for g in got[:n_oracle]] != \
+            chain_oracle(ref, sidx, spos, off[:n_oracle + 1]):
+        fail("chain: bench_chain records differ from the oracle")
+    S = int(np.diff(off).max())
+    j = torch.arange(S, device=dev)
+    src = torch.where(j < (off_t[1:] - off_t[:-1])[:, None],
+                      off_t[:-1, None] + j, int(off[-1]))
+
+    def dense(x):
+        return torch.cat([x, x.new_zeros(1)])[src]
+    dplanes = [dense(x) for x in planes]
+    d_is1 = dense(torch.from_numpy(is1).to(dev))
+    d_live = dense(torch.from_numpy(live).to(dev))
+    d_pos = dense(pos_t)
+    for cap in (8, 1):
+        k_out = ch.chain_scan(*dplanes, d_is1, d_live, d_pos, idmap,
+                              cap=cap)
+        r_out = ch.chain_scan_ref(*dplanes, d_is1, d_live, d_pos, idmap,
+                                  cap=cap)
+        torch.cuda.synchronize()
+        e = max_abs_err(zip(k_out, r_out))
+        err = max(err, e)
+        if e or bool(k_out[2]) != (cap == 1):
+            fail("chain: chain_scan != chain_scan_ref at cap %d" % cap)
+    # the kernel's two launches of chain_emit, timed without its host sync
+    counts = torch.empty(R, dtype=torch.int32, device=dev)
+    rec_off = have[1].clone()
+    out = torch.empty_like(have[0])
+
+    def kernel_pair():
+        ch._launch(*planes, flags, pos_t, idmap, off_t, R, rec_off, 0, None,
+                   counts, None)
+        torch.cumsum(counts, 0, out=rec_off[1:])
+        ch._launch(*planes, flags, pos_t, idmap, off_t, R, rec_off, 0, out,
+                   None, None)
+    ms = device_ms(kernel_pair, 20)[0]
+    if not torch.equal(out, have[0]):
+        fail("chain: the timed launches wrote other records")
+    plain_ms = device_ms(lambda: ch.chain_emit_ref(
+        *planes, flags, pos_t, idmap, off_t), 3, 1)[0]
+    n_rec = int(have[0].shape[0])
+    b_ms, b_by = bound_ms(chain_bytes(planes[0], R, n_rec, int(live.sum())))
+    bench = {"reads": R, "seeds": int(off[-1]), "records": n_rec,
+             "longest_read": S, "chain_records_first_s": first_s,
+             "chain_records_s": warm_s, "plain_driver_s": plain_s,
+             "native_mm_query_emit_s": native_s, "launches": n_launch,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "bound_share": b_ms / ms}
+    say(dict({"phase": "chain", "case": "bench_chain", "identical": True,
+              "setup_s": setup_s}, **bench))
+    # config 3's real seeds
+    t0 = time.perf_counter()
+    ref3, sidx3, spos3, off3, names, qids, qlen3 = config3_seeds(
+        small, work, rng)
+    setup3 = time.perf_counter() - t0
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got3 = ch.chain_records(ref3, sidx3, spos3, off3, device=dev)
+    c3_s = time.perf_counter() - t0
+    c3_launch = _build.LAUNCHES["chain_scan"]
+    t0 = time.perf_counter()
+    want3 = chain_oracle(ref3, sidx3, spos3, off3)
+    oracle_s = time.perf_counter() - t0
+    if [[tuple(int(v) for v in r) for r in g] for g in got3] != want3:
+        fail("chain: config 3 records differ from the oracle")
+    c3_native = native_chain_s(ref3, sidx3, spos3, off3, names, qids, qlen3)
+    say({"phase": "chain", "case": "config3", "identical": True,
+         "reads": len(off3) - 1, "seeds": int(off3[-1]),
+         "records": sum(len(g) for g in got3), "setup_s": setup3,
+         "chain_records_s": c3_s, "native_mm_query_emit_s": c3_native,
+         "oracle_s": oracle_s, "launches": c3_launch,
+         "card": nvidia_smi_line()})
+    report["chain_scan"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, bound_share=b_ms / ms, library_ms=None,
+        library="none: no PyTorch call runs a per-read sequential "
+        "automaton", timed="count pass, cumsum and emit pass on "
+        "bench_chain's %d reads (%d seeds)" % (R, int(off[-1])),
+        bench_chain=bench)
+
+
+# ---------------------------------------------------------------- multihost
+
+MH_READS = 200_000                # bench.py's reads, default_rng(42)
+
+
+def modutils_cli(argv, nproc, env_extra=None):
+    """modutils as a fresh process (nproc 0) or under torchrun with
+    ``nproc`` ranks: (stdout with the timing lines dropped, wall s)."""
+    cmd = ([sys.executable, "-m", "modimizer_tpu_torch.cli.modutils"]
+           if not nproc else
+           [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), "-m",
+            "modimizer_tpu_torch.cli.modutils"])
+    env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
+    for v in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(v, None)
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd + [str(a) for a in argv], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        fail("modutils (nproc %d) exited %d:\n%s" % (nproc, r.returncode,
+                                                     r.stderr[-3000:]))
+    return _TIMING.sub("", r.stdout), wall
+
+
+def shard_of(codes, offsets, first, last):
+    """Reads [first, last) of a stream: (codes, offsets from 0, base)."""
+    lo, hi = int(offsets[first]), int(offsets[last])
+    return codes[lo:hi], offsets[first:last + 1] - lo, lo
+
+
+def phase_multihost(small, work, launches):
+    """The multi-process build (parallel/multihost.py) and modutils under
+    torchrun.  At world size 1 (the plain run): bench.py's 200,000 reads
+    of 1,000 bp (k16 w16) fed to MultiHostModsetBuilder on a world-size-1
+    NCCL group as two shards in turn, with a snapshot saved and restored
+    between them (the main path: launch counts zeroed before and read
+    after), against the one-device builder's finalize and total_emitted;
+    then ``modutils -c 26 16 16 17 -a reads.fa -w out.mod`` as a fresh
+    process and under ``torch.distributed.run --standalone`` with one rank
+    (and with every card, where the machine has more than one), stdout
+    and .mod byte-identical.  Under torchrun (WORLD_SIZE > 1, one process
+    a card): four uneven shards (the first rank takes half the reads)
+    against the one-device builder."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from modimizer_tpu_torch import _build
+    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.parallel.mesh import build_mesh
+    from modimizer_tpu_torch.parallel.multihost import MultiHostModsetBuilder
+    from modimizer_tpu_torch.parallel.sharded import ShardedModsetBuilder
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    sh = Seqhash.create(16, 16, SEED)
+    n_reads = 4_000 if small else MH_READS
+    codes, offsets = bench_codes(n_reads, 1000, 42)
+    t0 = time.perf_counter()
+    one = ShardedModsetBuilder(sh, "cuda")
+    one.feed_stream(codes, offsets)
+    want = one.finalize()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    if world > 1:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group("nccl",
+                                timeout=datetime.timedelta(seconds=300))
+        # the first rank takes half the reads, the others share the rest
+        bounds = np.concatenate([[0], np.linspace(n_reads // 2, n_reads,
+                                                  world).astype(int)])
+    else:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            work, "mh_init"), world_size=1, rank=0)
+        bounds = np.array([0, n_reads // 2, n_reads])
+    try:
+        mesh = build_mesh(group=dist.group.WORLD)
+        # NCCL connects at the first all-to-all (~3 s on four cards): warm
+        # it up before the timed build
+        mesh.all_to_all(torch.zeros(mesh.n * 1024, dtype=torch.int64,
+                                    device=mesh.device))
+        mesh.barrier()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        b = MultiHostModsetBuilder(sh, mesh)
+        if world > 1:
+            r = mesh.rank
+            b.feed_stream(*shard_of(codes, offsets, bounds[r],
+                                    bounds[r + 1]))
+            cursor = None
+        else:
+            b.feed_stream(*shard_of(codes, offsets, 0, bounds[1]))
+            snap = os.path.join(work, "mh.snap")
+            b.save(snap, cursor=int(offsets[bounds[1]]))
+            b, cursor = MultiHostModsetBuilder.restore(snap, sh, mesh)
+            b.feed_stream(*shard_of(codes, offsets, bounds[1], bounds[2]))
+        got = b.finalize()
+        torch.cuda.synchronize()
+        mh_s = time.perf_counter() - t0
+        counts = {n: _build.LAUNCHES[n] for n in ("scan_compact",
+                                                  "route_rows")}
+        same = (all(np.array_equal(x, y) for x, y in zip(got, want))
+                and b.total_emitted == one.total_emitted and b.routed)
+        if not same or not all(counts.values()):
+            fail("multihost: the build differs from the one-device builder "
+                 "(%s)" % counts)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        rank = mesh.rank
+    finally:
+        dist.destroy_process_group()
+    say({"phase": "multihost", "world_size": world, "rank": rank,
+         "reads": n_reads, "shards": np.diff(bounds).tolist(),
+         "identical": True, "kmers": len(got[0]),
+         "total_emitted": b.total_emitted, "snapshot_cursor": cursor,
+         "multihost_s": mh_s, "one_device_s": one_s, "launches": counts,
+         "card": nvidia_smi_line()})
+    if world > 1:
+        return
+    # modutils: a fresh process against torchrun's ranks
+    fa = os.path.join(work, "mh_reads.fa")
+    write_reads(fa, n_reads, 1000, 42)
+    cpus = os.cpu_count() or 1
+
+    def argv(tag):
+        return ["-c", 26, 16, 16, 17, "-a", fa, "-w",
+                os.path.join(work, tag + ".mod")]
+    ref_out, ref_s = modutils_cli(argv("one"), 0)
+    with open(os.path.join(work, "one.mod"), "rb") as f:
+        ref_mod = f.read()
+    walls = {"one_process": ref_s}
+    for nproc in sorted({1, torch.cuda.device_count()}):
+        out, wall = modutils_cli(
+            argv("ranks%d" % nproc), nproc,
+            {"OMP_NUM_THREADS": str(max(1, cpus // nproc))})
+        with open(os.path.join(work, "ranks%d.mod" % nproc), "rb") as f:
+            same = f.read() == ref_mod
+        if out != ref_out or not same or "added %d sequences" % n_reads \
+                not in out:
+            fail("modutils under torchrun (nproc %d) differs from one "
+                 "process" % nproc)
+        walls["torchrun_%d" % nproc] = wall
+    say({"phase": "multihost", "case": "modutils", "bp": n_reads * 1000,
+         "identical": True, "wall_s": walls, "card": nvidia_smi_line()})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2026,6 +2662,14 @@ def main(argv=None):
         "name": "merge_reduce", "route": "cuda",
         "source": "modimizer_tpu_torch/csrc/merge.cu",
         "replaces": "modimizer_tpu/parallel/sharded.py:2131"}
+    report["minimizer"] = {
+        "name": "minimizer", "route": "cuda",
+        "source": "modimizer_tpu_torch/csrc/minimizer.cu",
+        "replaces": "modimizer_tpu/ops/minimizer.py:136"}
+    report["chain_scan"] = {
+        "name": "chain_scan", "route": "cuda",
+        "source": "modimizer_tpu_torch/csrc/chain.cu",
+        "replaces": "modimizer_tpu/parallel/chain.py:40"}
     launches = {}
     work = os.path.join(HERE, "chip_smoke_work")
     try:
@@ -2051,6 +2695,14 @@ def main(argv=None):
         if "sharded" in phases:
             os.makedirs(work, exist_ok=True)
             phase_sharded(a.small, work, launches, report)
+        if "minimizer" in phases:
+            phase_minimizer(a.small, launches, report)
+        if "chain" in phases:
+            os.makedirs(work, exist_ok=True)
+            phase_chain(a.small, work, launches, report)
+        if "multihost" in phases:
+            os.makedirs(work, exist_ok=True)
+            phase_multihost(a.small, work, launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for name, entries in ENTRIES.items():

@@ -31,7 +31,8 @@ LAUNCHES = {"scan_compact": 0, "densify": 0, "find_sorted": 0,
             "overlap_groups": 0, "overlap_join": 0, "overlap_dense": 0,
             "front_planes": 0, "front_reduce": 0, "front_mma": 0,
             "front_ops": 0, "tala16": 0, "dot16": 0, "roll12": 0,
-            "cumsum128": 0, "route_rows": 0, "merge_reduce": 0}
+            "cumsum128": 0, "route_rows": 0, "merge_reduce": 0,
+            "minimizer": 0, "chain_scan": 0}
 
 
 def reset_launches():
@@ -223,6 +224,23 @@ def _declare(L):
         p, p, p, p,            # kmers, depth, info, rank
         i64, i64, i32, p,      # m, out_len, blocks, block-count scratch
         p, p, p, p, p,         # out_k, out_d, out_i, out_r, n_heads
+        p]                     # stream
+    L.mz_minimizer_chunk.restype = ctypes.c_int
+    L.mz_minimizer_chunk.argtypes = [
+        p, i64, i64, i64, i64,  # sw, C, m_ext, n_win, base
+        i32, i64, u64,         # k, w, factor1
+        p, p, p, p,            # out hash, isF, emit, scratch (nullable)
+        p]                     # stream
+    L.mz_minimizer_tile.restype = ctypes.c_int
+    L.mz_minimizer_tile.argtypes = []
+    L.mz_minimizer_w_tile.restype = ctypes.c_int
+    L.mz_minimizer_w_tile.argtypes = []
+    L.mz_chain_scan.restype = ctypes.c_int
+    L.mz_chain_scan.argtypes = [
+        p, p, p, p,            # la, lb, ia, ib
+        p, p, p, p,            # flags, pos, idmap, seed_off
+        i64, p, i32,           # R, out_off (null: slots of cap), cap
+        p, p, p,               # out (null: count), counts, overflow
         p]                     # stream
     L.mz_error_string.restype = ctypes.c_char_p
     L.mz_error_string.argtypes = [i32]

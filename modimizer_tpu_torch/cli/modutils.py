@@ -12,14 +12,25 @@ with their counts are replayed into the table; smaller inputs, or any with
 output is byte-identical either way, and to the native host scan's
 (``MODIMIZER_SCAN=host``).
 
+Under torchrun (``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` set, one
+process a card) every rank parses the whole input and runs every command;
+the device count runs on the mesh of all ranks (rank r scans chunk s + r*C
+of the stream), the JAX CLI's ``build_mesh()`` over every device, and rank
+0 alone writes stdout and every file.
+
     python -m modimizer_tpu_torch.cli.modutils -c 26 16 16 17 -a reads.fa -w X.mod
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m modimizer_tpu_torch.cli.modutils -c 26 16 16 17 -a reads.fa -w X.mod
 """
 
+import contextlib
+import datetime
 import os
 import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.modset import Modset
 from ..core.seqhash import Seqhash
@@ -112,7 +123,7 @@ def _count_on_device(scanner: ModimizerScanner, n_bases: int) -> bool:
 
 
 def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
-                      is10x=False, builders=None) -> bool:
+                      is10x=False, builders=None, mesh=None) -> bool:
     """modutils addSequenceFile (modutils.c:33-51).  Inputs counted on the
     device (``_count_on_device``) are read whole, counted by the builder
     and replayed once as unique k-mers with counts; other FASTA/FASTQ
@@ -121,7 +132,8 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
     host scan, 10x, other formats) read the whole file and go through
     scan_kmers.  Same table
     either way.  When ``builders`` is a list, the input's builder is
-    appended to it, or None when the scanner scanned it."""
+    appended to it, or None when the scanner scanned it.  ``mesh``: the
+    mesh the device count runs on (None: the scanner's device alone)."""
     builder = None
     est = _est_stream_len(filename)
     if est < 0:
@@ -177,7 +189,8 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
         codes = np.concatenate(parts) if parts else np.zeros(0, np.int8)
         offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
     if _count_on_device(scanner, len(codes)):
-        builder = ShardedModsetBuilder(ms.hasher, build_mesh(scanner.device))
+        builder = ShardedModsetBuilder(
+            ms.hasher, mesh or build_mesh(scanner.device))
         builder.feed_stream(codes, offsets)
         uniq, counts = builder.finalize()
         n_hash = builder.total_emitted
@@ -192,25 +205,67 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
     return True
 
 
+TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK")
+
+
+def torchrun_mesh(device=None):
+    """Under torchrun's environment: (the mesh over its ranks, whether this
+    call initialised the process group); else (None, False).  The group is
+    NCCL on the card ``cuda:<LOCAL_RANK>``, or gloo when ``device`` names
+    the CPU."""
+    if not all(v in os.environ for v in TORCHRUN_VARS):
+        return None, False
+    cpu = device is not None and torch.device(device).type == "cpu"
+    owned = not dist.is_initialized()
+    if owned:
+        if not cpu:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        # a rank that fails leaves the others in a collective: they give up
+        # after the timeout
+        dist.init_process_group("gloo" if cpu else "nccl",
+                                timeout=datetime.timedelta(seconds=600))
+    return build_mesh("cpu" if cpu else None, group=dist.group.WORLD), owned
+
+
 def main(argv=None, device=None):
     """Run modutils commands in order.  device: a torch.device (or its
     name) for the scan; None takes the CUDA card and raises without one.
     ``device="cpu"`` runs the kernels' plain versions; MODIMIZER_SCAN=host
-    asks for the native host scan (no card needed)."""
-    run(sys.argv[1:] if argv is None else argv, device)
+    asks for the native host scan (no card needed).  Under torchrun the
+    ranks count on their mesh and rank 0 writes (see the module doc)."""
+    argv = sys.argv[1:] if argv is None else argv
+    mesh, owned = torchrun_mesh(device)
+    if mesh is None:
+        run(argv, device)
+        return
+    try:
+        with contextlib.ExitStack() as stack:
+            if mesh.rank:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            run(argv, mesh.device, mesh=mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
 
 @cli_guard
-def run(argv, device=None, builders=None):
+def run(argv, device=None, builders=None, mesh=None):
     """main()'s body; returns the scanner of the last scan command (for its
     counters), or None when no command scanned.  When ``builders`` is a
     list, each -a/-x input appends to it the builder that counted it on the
-    device, or None (``add_sequence_file``)."""
+    device, or None (``add_sequence_file``).  On a ``mesh`` of several
+    ranks the device count runs on it and only rank 0 writes files."""
     argv = list(argv)
     if not argv:
         usage()
     if device is not None:
         device = torch.device(device)
+    writer = mesh is None or mesh.rank == 0
+
+    def open_out(name):
+        """A written file: ``name`` on the writing rank, else nowhere."""
+        return open(name if writer else os.devnull, "w")
 
     out = OutFile()
     timer = Timer()
@@ -235,7 +290,7 @@ def run(argv, device=None, builders=None):
         if args.match("-v", "--verbose", 1):
             pass
         elif (m := args.match("-o", "--output", 2)):
-            out.set(m[1])
+            out.set(m[1] if writer else "-")
         elif ms is None and args.match("-c", "--create", 1):
             B, k, w, s = 28, 19, 31, 17
             vals = []
@@ -271,7 +326,8 @@ def run(argv, device=None, builders=None):
                 die("failed to open mod file %s", m[1])
             ms.summary(out)
         elif ms is not None and (m := args.match("-w", "--write", 2)):
-            ms.write(m[1])
+            if writer:
+                ms.write(m[1])
         elif ms is None and (m := args.match("-rt", "--readtext", 2)):
             try:
                 f = open(m[1])
@@ -282,7 +338,7 @@ def run(argv, device=None, builders=None):
             ms.summary(out)
         elif ms is not None and (m := args.match("-wt", "--writetext", 2)):
             try:
-                f = open(m[1], "w")
+                f = open_out(m[1])
             except OSError:
                 die("failed to open text file %s", m[1])
             with f:
@@ -298,12 +354,12 @@ def run(argv, device=None, builders=None):
             ms.summary(out)
         elif ms is not None and (m := args.match("-a", "--add", 2)):
             if not add_sequence_file(ms, get_scanner(), m[1], out,
-                                     builders=builders):
+                                     builders=builders, mesh=mesh):
                 die("failed to open sequence file %s", m[1])
             ms.summary(out)
         elif ms is not None and (m := args.match("-x", "--add10x", 2)):
             if not add_sequence_file(ms, get_scanner(), m[1], out, is10x=True,
-                                     builders=builders):
+                                     builders=builders, mesh=mesh):
                 die("failed to open sequence file %s", m[1])
             ms.summary(out)
         elif ms is not None and (m := args.match("-m", "--merge", 2)):
@@ -318,14 +374,14 @@ def run(argv, device=None, builders=None):
             ms.summary(out)
         elif ms is not None and (m := args.match("-H", "--hist", 2)):
             try:
-                f = open(m[1], "w")
+                f = open_out(m[1])
             except OSError:
                 die("failed to open histogram file %s", m[1])
             with f:
                 depth_histogram(ms, f)
         elif ms is not None and (m := args.match("-d", "--depths", 2)):
             try:
-                fd = open(m[1], "w")
+                fd = open_out(m[1])
             except OSError:
                 die("failed to open depths file %s", m[1])
             others = []

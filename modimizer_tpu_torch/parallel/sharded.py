@@ -281,6 +281,16 @@ class ShardedModsetBuilder:
         """Scan a flat host stream (codes 0..3, read offsets) chunk by chunk
         into the buffer; ``base`` is the stream position of codes[0].  On a
         mesh, rank r takes chunk s + r*C of each super-chunk s."""
+        step = self.n * self.chunk
+        n_steps = max(1, -(-len(codes) // step))
+        self._feed(codes, offsets, base, [s * step + self.mesh.rank
+                                          * self.chunk
+                                          for s in range(n_steps)])
+
+    def _feed(self, codes, offsets, base, starts):
+        """Scan the chunks of ``codes`` that start at ``starts`` (a chunk
+        past the end scans zero words and emits nothing, but joins every
+        collective), each at stream position ``base`` + its start."""
         L = native_lib()
         k = self.sh.k
         n_total = len(codes)
@@ -288,14 +298,12 @@ class ShardedModsetBuilder:
         offsets = np.ascontiguousarray(offsets, np.int64)
         C = self.chunk
         NW = C // 32
-        step = self.n * C
-        mine = self.mesh.rank * C
-        n_steps = max(1, -(-n_total // step))
-        vwords = np.empty(n_steps * step // 64, np.uint64)
+        # pk_valid_words clears bits up to n_total: cover the whole stream
+        vwords = np.empty(-(-max(max(starts) + C, n_total) // 64),
+                          np.uint64)
         L.pk_valid_words(offsets, len(offsets) - 1, n_total, k, vwords,
                          len(vwords))
-        for s in range(0, max(n_total, 1), step):
-            st = s + mine
+        for st in starts:
             with profiling.stage("count.pack"):
                 seg = codes[st:st + C + k - 1]
                 sw = np.empty(NW + 2, np.uint64)

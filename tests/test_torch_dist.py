@@ -776,3 +776,137 @@ def test_dryrun_multichip_counterpart(run):
         (u2, c2), _ = sequential(Seqhash.create(kk, 31, R.SEED), big, boffs)
         assert np.array_equal(g["fused_k%d" % kk], u2)
         assert np.array_equal(g["fused_d%d" % kk], c2)
+
+
+# ------------------------------------------ the multi-process build
+
+def live_rows(k, d, m):
+    """A shard's live state rows (k-mer, depth, first position), sorted."""
+    k, d, m = (np.asarray(x) for x in (k, d, m))
+    real = k != U64(ALL_ONES)
+    order = np.argsort(k[real], kind="stable")
+    return k[real][order], d[real][order], m[real][order]
+
+
+@pytest.mark.parametrize("kind", R.MH_SPLITS)
+def test_multihost_build_equals_jax_and_sequential(run, kind):
+    """Each rank feeds its own shard (split at read 60 of 120 for two
+    ranks, or the first rank to read 104): the result equals JAX's
+    ShardedModsetBuilder over the whole stream on a mesh of the same n
+    (finalize, total_emitted, each shard's live state) and the sequential
+    build."""
+    sh = Seqhash.create(16, 16, 17)
+    codes, offsets = R.mh_stream()
+    got = run.load("mh_" + kind)
+    assert_replicated(got, "ks", "ds", "total")
+    jb = jax_builder(run.n, sh, **R.MH_KW)
+    jb.feed_stream(codes, offsets)
+    jks, jds = jb.finalize()
+    g = got[0]
+    assert np.array_equal(g["ks"], jks) and np.array_equal(g["ds"], jds)
+    assert int(g["total"]) == jb.total_emitted
+    for r, x in enumerate(got):
+        want = live_rows(*(np.asarray(getattr(jb, key))[r]
+                           for key in ("state_k", "state_d", "state_m")))
+        have = live_rows(x["state_k"], x["state_d"], x["state_m"])
+        assert len(have[0]) > 0
+        for a, b in zip(have, want):
+            assert np.array_equal(a, b), r
+    (uniq, counts), n_emit = sequential(sh, codes, offsets)
+    assert np.array_equal(g["ks"], uniq) and np.array_equal(g["ds"], counts)
+    assert int(g["total"]) == n_emit
+    shards = [int(x["shard"]) for x in got]
+    assert sum(shards) == len(codes)
+    if kind == "uneven":            # rank 0 takes many more steps
+        assert shards[0] > 4 * max(shards[1:])
+
+
+def test_multihost_snapshot_drill(run):
+    sh = Seqhash.create(16, 16, 17)
+    codes, offsets = R.mh_stream()
+    got = run.load("mh_snapshot")
+    assert_replicated(got, "ks", "ds", "total", "cursor")
+    assert all(str(x["kind"]) == "MultiHostModsetBuilder" for x in got)
+    (uniq, counts), n_emit = sequential(sh, codes, offsets)
+    assert np.array_equal(got[0]["ks"], uniq)
+    assert np.array_equal(got[0]["ds"], counts)
+    assert int(got[0]["total"]) == n_emit
+
+
+def test_multihost_restores_a_jax_snapshot(run):
+    codes, offsets = R.snap_stream()
+    got = run.load("mh_from_jax")
+    assert_replicated(got, "ks", "ds", "total")
+    assert int(got[0]["cursor"]) == int(offsets[R.SNAP_CUT])
+    (uniq, counts), n_emit = sequential(Seqhash.create(16, 16, R.SEED),
+                                        codes, offsets)
+    assert np.array_equal(got[0]["ks"], uniq)
+    assert np.array_equal(got[0]["ds"], counts)
+    assert int(got[0]["total"]) == n_emit
+
+
+def _captured(main, argv, **kw):
+    import io
+    out = io.StringIO()
+    old = sys.stdout
+    try:
+        sys.stdout = out
+        main([str(a) for a in argv], **kw)
+    finally:
+        sys.stdout = old
+    return out.getvalue()
+
+
+def test_modutils_two_ranks_under_torchrun(tmp_path, monkeypatch):
+    """modutils as two gloo ranks with torchrun's variables set: the count
+    runs on the 2-rank mesh (the routed builder), rank 0 alone writes
+    stdout and the files, and its stdout (timing lines dropped) and files
+    are byte-identical to the one-process port's and to the JAX CLI's host
+    path."""
+    import json
+    import socket
+    from modimizer_tpu.cli import modutils as jax_cli
+    from modimizer_tpu_torch.cli import modutils as port_cli
+    from tests.util import random_fasta, strip_timing
+    fa = random_fasta(tmp_path / "r.fa", 60, 300, seed=5, genome_len=6000)
+
+    def argv(tag):
+        return ["-c", "20", "16", "16", "17", "-a", fa,
+                "-w", tmp_path / (tag + ".mod"),
+                "-wt", tmp_path / (tag + ".txt"),
+                "-H", tmp_path / (tag + ".his")]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, PYTHONPATH=str(REPO), WORLD_SIZE="2",
+                   RANK=str(r), LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        env.pop("MODIMIZER_SCAN", None)
+        with open(tmp_path / ("log%d" % r), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tests.torch_dist_ranks", "modutils",
+                 str(tmp_path)] + [str(a) for a in argv("ranks")],
+                cwd=str(REPO), env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    rcs = [p.wait(timeout=300) for p in procs]
+    assert rcs == [0, 0], [(tmp_path / ("log%d" % r)).read_text()[-3000:]
+                           for r in range(2)]
+    for r in range(2):
+        made = json.loads((tmp_path / ("builders.%d.json" % r)).read_text())
+        assert made == [[2, True]], made
+    assert (tmp_path / "stdout.1").read_text() == ""
+    ranks_out = strip_timing((tmp_path / "stdout.0").read_text())
+    monkeypatch.setattr(port_cli, "DEVICE_COUNT_THRESHOLD",
+                        R.MODUTILS_THRESHOLD)
+    one_out = strip_timing(_captured(port_cli.main, argv("one"),
+                                     device="cpu"))
+    monkeypatch.setenv("MODIMIZER_SCAN", "host")
+    jax_out = strip_timing(_captured(jax_cli.main, argv("jax")))
+    assert "added 60 sequences" in ranks_out
+    assert ranks_out == one_out == jax_out
+    for ext in (".mod", ".txt", ".his"):
+        data = (tmp_path / ("ranks" + ext)).read_bytes()
+        assert data == (tmp_path / ("one" + ext)).read_bytes(), ext
+        assert data == (tmp_path / ("jax" + ext)).read_bytes(), ext

@@ -6,7 +6,8 @@ the host modules (``core``, ``io``, ``native``, ``utils``, ``cli``, the
 scanner's host methods) behave as the JAX package's originals: Seqhash
 fields, ``scan_bo``, the sequence readers, the native host scan and the
 ``MODIMIZER_SCAN=host`` CLI's ``.mod`` bytes, the ``Array``/``DICT``
-containers of ``io/carray``.  Also the constants of the division-free emit
+containers of ``io/carray``, and the four host-only CLIs (composition,
+modtype, seqconvert, seqhoco) byte for byte against the JAX package's.  Also the constants of the division-free emit
 test that ``csrc/scan_compact.cu`` takes, emulated with Python ints against
 ``h % w == 0``, and ``MODIMIZER_BLK`` refused above the kernel's limit."""
 
@@ -78,7 +79,9 @@ names = [m.name for m in pkgutil.walk_packages(modimizer_tpu_torch.__path__,
                                               "modimizer_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("parallel.mesh", "ops.route", "ops.merge"):
+for name in ("parallel.mesh", "ops.route", "ops.merge", "parallel.multihost",
+             "ops.minimizer", "parallel.chain", "cli.composition",
+             "cli.modtype", "cli.seqconvert", "cli.seqhoco"):
     assert "modimizer_tpu_torch." + name in names, name
 from modimizer_tpu_torch.cli import modasm, modmap, modrep, modutils
 modutils.main(sys.argv[1:], device="cpu")
@@ -93,6 +96,32 @@ from modimizer_tpu_torch.parallel.sharded import sharded_merge
 ms = Modset.read("p.mod")
 assert sharded_merge(ms, ms, build_mesh("cpu"))[0].tolist() == \
     ms.value[1:ms.max + 1].tolist()
+import numpy as np
+from modimizer_tpu_torch.core.seqhash import Seqhash
+from modimizer_tpu_torch.ops.minimizer import minimizer_scan
+from modimizer_tpu_torch.parallel.chain import chain_records
+from modimizer_tpu_torch.parallel.multihost import MultiHostModsetBuilder
+sh = Seqhash.create(16, 16, 17)
+codes = np.random.default_rng(1).integers(0, 4, 3000).astype(np.uint8)
+assert len(minimizer_scan(sh, codes, chunk=1024, device="cpu")[1]) > 100
+b = MultiHostModsetBuilder(sh, build_mesh("cpu"), chunk_per_dev=1 << 12)
+b.feed_stream(codes, np.array([0, 3000]))
+assert len(b.finalize()[0]) > 100
+
+
+class Ref:
+    rev = loc = np.arange(40, dtype=np.uint32)
+    id = np.zeros(40, np.uint32)
+    class ms:
+        info = np.full(40, 2, np.uint8)
+
+
+recs = chain_records(Ref, np.arange(1, 9, dtype=np.uint32),
+                     np.arange(8) * 10, np.array([0, 8]), device="cpu")
+assert recs == [[(0, 70, 1, 8, 0, 8, 1)]], recs
+from modimizer_tpu_torch.cli import composition, seqconvert
+composition.main(["-b", "r.fa"])
+seqconvert.main(["-fq", "-o", "c.fq", "r.fa"])
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "modimizer_tpu")]
 assert not bad, bad
 sys.stderr.write("STANDALONE_OK %d\n" % len(names))
@@ -344,3 +373,103 @@ def test_emit_test_equals_modulo(w, bits):
     hs |= {w * int(q) for q in rng.integers(0, 1 << 20, 16)}
     for h in sorted(x for x in hs if 0 <= x < 1 << bits):
         assert _holds(h, c, bits) == (h % w == 0), (w, h)
+
+
+# ---- the four host-only CLIs against the JAX package's ----
+
+class _Bytes:
+    """A text stream with a ``buffer``, over one bytes buffer."""
+
+    def __init__(self, b):
+        self.buffer = b
+
+    def write(self, s):
+        self.buffer.write(s.encode() if isinstance(s, str) else s)
+
+    def flush(self):
+        pass
+
+
+def _run_cli(package, tool, argv):
+    """``package.cli.tool.main(argv)``: (exit code, stdout bytes, stderr)."""
+    import importlib
+    mod = importlib.import_module("%s.cli.%s" % (package, tool))
+    out, err = io.BytesIO(), io.BytesIO()
+    old = sys.stdout, sys.stderr
+    code = 0
+    try:
+        sys.stdout, sys.stderr = _Bytes(out), _Bytes(err)
+        mod.main([str(a) for a in argv])
+    except SystemExit as e:
+        code = e.code or 0
+    finally:
+        sys.stdout, sys.stderr = old
+    return (code, strip_timing(out.getvalue().decode("latin1")),
+            strip_timing(err.getvalue().decode("latin1")))
+
+
+def _one_masked(b: bytes) -> bytes:
+    """A ONE file with its provenance timestamp (19 bytes after ' 19 ')
+    masked."""
+    i = b.find(b" 19 ", 0, 500)
+    return b if i < 0 else b[:i + 4] + b"T" * 19 + b[i + 23:]
+
+
+@pytest.fixture(scope="module")
+def cli_data(tmp_path_factory):
+    d = tmp_path_factory.mktemp("host_clis")
+    random_fasta(d / "r.fa", 40, 350, seed=5, genome_len=4000)
+    random_fastq(d / "r.fq", 25, 150, seed=6)
+    (d / "r.fq.gz").write_bytes(gzip.compress((d / "r.fq").read_bytes()))
+    (d / "homo.fa").write_text(">h1 some desc\nAAAACCCgggTTTTAcgtACGT\n"
+                               ">h2\nGGGGGGGGGGAAAAA\n>h3\nacgT\n")
+    random_fasta(d / "ref.fa", 3, 4000, seed=4)
+    (d / "sites.1ins").write_text(
+        "1 3 ins 1 1\nc 0 5 read0\nI 100 200\nI 300 420\n"
+        "c 0 5 read2\nI 10 50\n")
+    (d / "bad.1ins").write_text("1 3 ins 1 1\nc 0 5 nope1\nI 1 2\n")
+    (d / "samples.1smp").write_text(
+        "1 3 smp 1 1\nN 2 s1\nF 7 a.fq.gz\nC 30.000000\n"
+        "N 5 samp2\nF 7 b.fq.gz\nC 12.500000\n")
+    return d
+
+
+# (tool, arguments, files written); OUT is the run's own output prefix
+HOST_CLI_CASES = [
+    ("composition", ["-b", "-l", "r.fa"], []),
+    ("composition", ["-b", "-q", "r.fq"], []),
+    ("composition", ["-b", "-l", "-q", "r.fq.gz"], []),
+    ("seqconvert", ["-fq", "-o", "OUT.fq", "r.fa"], ["OUT.fq"]),
+    ("seqconvert", ["-fa", "-o", "OUT.fa", "r.fq"], ["OUT.fa"]),
+    ("seqconvert", ["-fa", "-z", "-o", "OUT.fa.gz", "r.fq.gz"],
+     ["OUT.fa.gz"]),
+    ("seqconvert", ["-b", "-o", "OUT.bin", "r.fa"], ["OUT.bin"]),
+    ("seqconvert", ["-b", "-Q", "20", "-o", "OUT.bin", "r.fq"], ["OUT.bin"]),
+    ("seqconvert", ["-1", "-o", "OUT.1seq", "r.fq"], ["OUT.1seq"]),
+    ("seqhoco", ["homo.fa"], []),
+    ("seqhoco", ["r.fq"], []),
+    ("modtype", ["ref.fa", "sites.1ins", "samples.1smp"], []),
+    ("modtype", ["ref.fa", "bad.1ins", "samples.1smp"], []),
+]
+
+
+@pytest.mark.parametrize("tool,argv,files", HOST_CLI_CASES,
+                         ids=["%s-%d" % (c[0], i)
+                              for i, c in enumerate(HOST_CLI_CASES)])
+def test_host_cli_copy_matches_jax(cli_data, monkeypatch, tool, argv, files):
+    """The port's copy of each host-only CLI against the JAX package's:
+    exit code, stdout and stderr (timing lines dropped) and every written
+    file, byte for byte (a ONE file's provenance timestamp masked)."""
+    monkeypatch.chdir(cli_data)
+    runs = {}
+    for package in ("modimizer_tpu_torch", "modimizer_tpu"):
+        tag = package.split("_")[-1]
+        args = [a.replace("OUT", tag) for a in argv]
+        runs[package] = (_run_cli(package, tool, args),
+                         [_one_masked((cli_data / f.replace("OUT", tag))
+                                      .read_bytes()) for f in files])
+    (port, port_files), (jax, jax_files) = (runs["modimizer_tpu_torch"],
+                                            runs["modimizer_tpu"])
+    assert port == jax
+    assert port_files == jax_files
+    assert any(port) or port_files      # the run produced something

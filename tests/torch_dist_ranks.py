@@ -2,15 +2,17 @@
 gloo group on the CPU, one process a rank.
 
     python -m tests.torch_dist_ranks RANK WORLD INIT_FILE OUT_DIR
+    python -m tests.torch_dist_ranks modutils OUT_DIR ARGS...
 
-joins a group of WORLD ranks (``file://INIT_FILE``), runs every case of
-``CASES`` on ``build_mesh("cpu", group)`` and writes each case's results
-to ``OUT_DIR/<case>.<rank>.npz``.  Nothing here imports jax or the JAX
+The first joins a group of WORLD ranks (``file://INIT_FILE``), runs every
+case of ``CASES`` on ``build_mesh("cpu", group)`` and writes each case's
+results to ``OUT_DIR/<case>.<rank>.npz``.  Nothing here imports jax or the JAX
 package: the test compares the results with the JAX package's mesh, in
 its own process.  The inputs are made from numpy seeds by the functions
 below, which the test calls too; OUT_DIR/jax.snap (a JAX snapshot of the
 first part of ``snap_stream``) is written by the test before the ranks
-start.
+start.  The second runs ``modutils ARGS`` as one rank under torchrun's
+variables (``modutils_rank``).
 """
 
 import os
@@ -276,14 +278,136 @@ def case_dryrun(mesh, out):
     return got
 
 
+# ---------------------------------------- the multi-process build
+
+MH_KW = dict(chunk_per_dev=1 << 11, state_size=1 << 12)
+MH_SPLITS = ("even", "uneven")
+
+
+def mh_stream():
+    """tests/test_multihost.py's global stream: 120 reads of 60..400."""
+    rng = np.random.default_rng(77)
+    lens = rng.integers(60, 400, size=120)
+    codes = rng.integers(0, 4, size=int(lens.sum())).astype(np.uint8)
+    return codes, np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+
+def mh_splits(kind, n, first=0, last=120):
+    """Read boundaries of n shards of reads [first, last): even, or the
+    first shard to read 104 (test_multihost.py's uneven split) and the
+    rest shared by the other ranks."""
+    if kind == "even":
+        return np.linspace(first, last, n + 1).round().astype(int)
+    return np.concatenate([[first], np.linspace(104, last, n).round()]
+                          ).astype(int)
+
+
+def mh_shard(codes, offsets, splits, r):
+    """Rank r's shard: (codes, offsets from 0, global base)."""
+    a, b = splits[r], splits[r + 1]
+    lo, hi = int(offsets[a]), int(offsets[b])
+    return codes[lo:hi], offsets[a:b + 1] - lo, lo
+
+
+def case_mh(kind):
+    def run(mesh, out):
+        from modimizer_tpu_torch.core.seqhash import Seqhash
+        from modimizer_tpu_torch.parallel.multihost import (
+            MultiHostModsetBuilder)
+        codes, offsets = mh_stream()
+        my_codes, my_off, base = mh_shard(
+            codes, offsets, mh_splits(kind, mesh.n), mesh.rank)
+        b = MultiHostModsetBuilder(Seqhash.create(16, 16, 17), mesh,
+                                   **MH_KW)
+        b.feed_stream(my_codes, my_off, base=base)
+        return dict(_builder_result(b, *b.finalize()), shard=len(my_codes))
+    return run
+
+
+def case_mh_snapshot(mesh, out):
+    """The preemption drill of test_multihost.py: every rank feeds half of
+    its shard, the build is saved (collective, rank 0 writes), restored
+    into a new builder, and every rank feeds the rest from its own
+    cursor."""
+    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.parallel.multihost import MultiHostModsetBuilder
+    sh = Seqhash.create(16, 16, 17)
+    codes, offsets = mh_stream()
+    my_codes, my_off, base = mh_shard(codes, offsets,
+                                      mh_splits("even", mesh.n), mesh.rank)
+    b = MultiHostModsetBuilder(sh, mesh, **MH_KW)
+    cutr = (len(my_off) - 1) // 2
+    cut = int(my_off[cutr])
+    b.feed_stream(my_codes[:cut], my_off[:cutr + 1], base=base)
+    snap = os.path.join(out, "mh.snap")
+    b.save(snap, cursor=base + cut)
+    b, cursor = MultiHostModsetBuilder.restore(snap, sh, mesh)
+    b.feed_stream(my_codes[cut:], my_off[cutr:] - cut, base=base + cut)
+    return dict(_builder_result(b, *b.finalize()), cursor=cursor,
+                kind=type(b).__name__)
+
+
+def case_mh_from_jax(mesh, out):
+    """A JAX builder's snapshot of snap_stream's first SNAP_CUT reads
+    restored here, and the other reads fed as one shard a rank."""
+    from modimizer_tpu_torch.core.seqhash import Seqhash
+    from modimizer_tpu_torch.parallel.multihost import MultiHostModsetBuilder
+    codes, offsets = snap_stream()
+    b, cursor = MultiHostModsetBuilder.restore(
+        os.path.join(out, "jax.snap"), Seqhash.create(16, 16, SEED), mesh,
+        max_buffer_rows=KW["max_buffer_rows"])
+    splits = mh_splits("even", mesh.n, SNAP_CUT, len(offsets) - 1)
+    b.feed_stream(*mh_shard(codes, offsets, splits, mesh.rank))
+    return dict(_builder_result(b, *b.finalize()), cursor=cursor)
+
+
 CASES = {**{"build_" + n: case_build(n) for n in BUILDS},
          "overflow": case_overflow, "snap_from_jax": case_snap_from_jax,
          "snap_to_port": case_snap_to_port, "snap_errors": case_snap_errors,
          **{n: case_merge(n) for n in MERGES}, "lookup": case_lookup,
-         "dryrun": case_dryrun}
+         "dryrun": case_dryrun,
+         **{"mh_" + k: case_mh(k) for k in MH_SPLITS},
+         "mh_snapshot": case_mh_snapshot, "mh_from_jax": case_mh_from_jax}
+
+
+# ---------------------------------------- modutils under torchrun
+
+MODUTILS_THRESHOLD = 1 << 12    # inputs of 4,096 bases or more: the builder
+MODUTILS_CHUNK = 1 << 12        # its chunk a rank
+
+
+def modutils_rank(out, argv):
+    """One rank of ``modutils`` under torchrun's variables (WORLD_SIZE,
+    RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) on the CPU: main() inits
+    the gloo group itself.  The device-count threshold and the builder's
+    chunk are lowered so that a small input takes the builder; each
+    builder's (n, routed) goes to OUT/builders.<rank>.json and the rank's
+    stdout to OUT/stdout.<rank>."""
+    import contextlib
+    import json
+    from modimizer_tpu_torch.cli import modutils
+    made = []
+
+    class Builder(modutils.ShardedModsetBuilder):
+        def __init__(self, sh, mesh, **kw):
+            super().__init__(sh, mesh, chunk_per_dev=MODUTILS_CHUNK, **kw)
+            made.append((self.n, self.routed))
+
+    modutils.DEVICE_COUNT_THRESHOLD = MODUTILS_THRESHOLD
+    modutils.ShardedModsetBuilder = Builder
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(out, "stdout.%d" % rank), "w") as f:
+        with contextlib.redirect_stdout(f):
+            modutils.main(argv, device="cpu")
+    with open(os.path.join(out, "builders.%d.json" % rank), "w") as f:
+        json.dump(made, f)
 
 
 def main(argv):
+    if argv[0] == "modutils":
+        modutils_rank(argv[1], argv[2:])
+        assert "jax" not in sys.modules
+        return
     rank, world, init_file, out = (int(argv[0]), int(argv[1]), argv[2],
                                    argv[3])
     import datetime
