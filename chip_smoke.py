@@ -1961,10 +1961,19 @@ def phase_sharded(small, work, launches, report):
 
 MIN_KW = ((19, 31), (16, 16))     # the reference's defaults, and k16 w16
 MIN_CHUNK = 1 << 22
-# w = 255, on the kernel's tile path, and 300, wider than its tile
+# w = 255 and 300, each timed beside the two unfold passes
 MIN_EDGE_W = (255, 300)
 MIN_EDGE_LEN = 8_000_000
+# w = 1, 256, 257, 1,000, the tile path's widest and one more (added at
+# run time from ops/minimizer.py's W_TILE), and 2^14 and 2^20 (segments
+# across many of the wide path's blocks), on a cut
+MIN_CUT_W = (1, 256, 257, 1000)
+MIN_WIDE_W = (1 << 14, 1 << 20)
+MIN_CUT_LEN = 2_000_000
 MIN_BRUTE_LEN = 1_000_000
+# chunks of 32 positions: (w, m_ext, n_win, base)
+MIN_TINY = ((1, 32, 32, 0), (16, 32, 17, 0), (32, 32, 1, 0), (31, 20, 5, 3),
+            (7, 9, 40, 30))
 
 
 def minimizer_chunk_inputs(sh, codes, s, chunk):
@@ -2015,9 +2024,10 @@ def phase_minimizer(small, launches, report):
     on the card, chunk by chunk); the kernel held bit for bit against
     minimizer_chunk_ref on a middle chunk (halos on both sides) and timed
     with its plain version, its bound and the two window passes of
-    x.unfold(0, w, 1); w = 255 (the tile path's widest test) and 300
-    (the wide path) on a cut; the all-window set against brute force on a
-    1 Mbp cut."""
+    x.unfold(0, w, 1); w = 255 and 300 on an 8 Mbp cut; w = 1, 256, 257,
+    1,000, the tile path's widest and one more, 2^14 and 2^20 on a 2 Mbp
+    cut (the scan and its one chunk, timed but for unfold); chunks of 32
+    positions; the all-window set against brute force on a 1 Mbp cut."""
     import numpy as np
     import torch
     from modimizer_tpu_torch import _build
@@ -2037,7 +2047,9 @@ def phase_minimizer(small, launches, report):
     setup_s = time.perf_counter() - t0
     err, cases, main = 0.0, [], None
     kws = [(k, w, n) for k, w in MIN_KW] + [
-        (16, w, min(n, MIN_EDGE_LEN)) for w in MIN_EDGE_W]
+        (16, w, min(n, MIN_EDGE_LEN)) for w in MIN_EDGE_W] + [
+        (16, w, min(n, MIN_CUT_LEN))
+        for w in MIN_CUT_W + (mz.W_TILE, mz.W_TILE + 1) + MIN_WIDE_W]
     for k, w, length in kws:
         sh = Seqhash.create(k, w, SEED)
         seq = codes[:length]
@@ -2076,14 +2088,17 @@ def phase_minimizer(small, launches, report):
                                                   **args), 20)[0]
         plain_ms = device_ms(lambda: mz.minimizer_chunk_ref(
             sw, m_ext, n_win, base, **args), 3, 1)[0]
-        hh = torch.where(torch.arange(cext, device="cuda") < m_ext,
-                         rout[0], mz.PAD)
-        pad = torch.full((w - 1,), mz.PAD, dtype=torch.int64, device="cuda")
+        near_ms = None
+        if w <= max(MIN_EDGE_W):
+            hh = torch.where(torch.arange(cext, device="cuda") < m_ext,
+                             rout[0], mz.PAD)
+            pad = torch.full((w - 1,), mz.PAD, dtype=torch.int64,
+                             device="cuda")
 
-        def unfold_passes():
-            a = torch.cat([hh, pad]).unfold(0, w, 1).amin(1)
-            return torch.cat([pad * 0, a]).unfold(0, w, 1).amax(1)
-        near_ms = device_ms(unfold_passes, 10)[0]
+            def unfold_passes():
+                a = torch.cat([hh, pad]).unfold(0, w, 1).amin(1)
+                return torch.cat([pad * 0, a]).unfold(0, w, 1).amax(1)
+            near_ms = device_ms(unfold_passes, 10)[0]
         b_ms, b_by = bound_ms(nbytes(sw, *kout))
         line = {"k": k, "w": w, "bp": length, "emitted": len(got[1]),
                 "scan_s": wall, "plain_scan_s": plain_wall,
@@ -2095,6 +2110,18 @@ def phase_minimizer(small, launches, report):
         say(dict({"phase": "minimizer", "identical": True}, **line))
         if main is None:
             main = line
+    # chunks of 32 positions
+    rng = np.random.default_rng(SEED)
+    for w, m_ext, n_win, base in MIN_TINY:
+        sh = Seqhash.create(16, w, SEED)
+        sw = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, 2,
+                                           dtype=np.int64)).to("cuda")
+        args = dict(k=16, w=w, factor1=sh.factor1, C=32)
+        e = max_abs_err(zip(mz.minimizer_chunk(sw, m_ext, n_win, base, **args),
+                            mz.minimizer_chunk_ref(sw, m_ext, n_win, base,
+                                                   **args)))
+        if e:
+            fail("minimizer: a chunk of 32 positions at w %d differs" % w)
     # the all-window set against brute force on a 1 Mbp cut (k19 w31)
     sh = Seqhash.create(*MIN_KW[0], SEED)
     cut = codes[:MIN_BRUTE_LEN]
@@ -2111,10 +2138,12 @@ def phase_minimizer(small, launches, report):
         "the masked minima: the two window passes alone, no hashing or "
         "emit", nearest_ms=main["unfold_ms"],
         timed="a middle chunk of %d positions at k%d w%d"
-        % (main["chunk_C"], main["k"], main["w"]), cases=cases)
+        % (main["chunk_C"], main["k"], main["w"]),
+        ms_by_w={"k%d w%d" % (c["k"], c["w"]): c["ms"] for c in cases},
+        cases=cases)
     say({"phase": "minimizer", "bp": n, "setup_s": setup_s,
-         "brute_force_bp": len(cut), "brute_force_identical": True,
-         "card": nvidia_smi_line()})
+         "tiny_chunks": len(MIN_TINY), "brute_force_bp": len(cut),
+         "brute_force_identical": True, "card": nvidia_smi_line()})
 
 
 # ---------------------------------------------------------------- chain
@@ -2122,39 +2151,6 @@ def phase_minimizer(small, launches, report):
 CHAIN_READS = 100_000             # scripts/bench_chain.py's default size
 CHAIN_SPR = 30
 CHAIN_ORACLE_READS = 5_000        # bench_chain's reads the oracle replays
-
-
-def bench_chain_case(n_reads, spr, n_mods=200000, n_refs=24, seed=1):
-    """scripts/bench_chain.py's make_case (:17-42): colinear-ish
-    occurrences so that real blocks form, runs of consecutive mods with
-    10 % misses.  Returns (ref-like, sidx, spos, seed_off)."""
-    import types
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    info = np.zeros(n_mods + 1, np.uint8)
-    info[1:] = rng.choice([1, 1, 1, 2, 3], n_mods).astype(np.uint8)
-    n_occ = np.where((info & 3) == 2, 2, 1)
-    n_occ[0] = 1
-    loc = np.concatenate([[0], np.cumsum(n_occ[:-1])]).astype(np.uint32)
-    total = int(n_occ.sum())
-    rev = (np.arange(total, dtype=np.uint32)
-           + rng.integers(-3, 4, total).astype(np.int64)).clip(
-               0, total - 1).astype(np.uint32)
-    bounds = np.sort(rng.choice(total, n_refs - 1, replace=False))
-    rid = np.searchsorted(bounds, np.arange(total),
-                          side="right").astype(np.uint32)
-    offs = (np.arange(total, dtype=np.uint32) * 13) & 0xFFFFFF
-    ns = rng.integers(max(1, spr - 10), spr + 10, n_reads)
-    seed_off = np.concatenate([[0], np.cumsum(ns)]).astype(np.int64)
-    S = int(seed_off[-1])
-    base = rng.integers(1, n_mods - 200, n_reads)
-    within = np.arange(S) - np.repeat(seed_off[:-1], ns)
-    sidx = (np.repeat(base, ns) + within // 2).astype(np.uint32)
-    sidx[rng.random(S) < 0.1] = 0
-    spos = (within * 16).astype(np.int64)
-    ref = types.SimpleNamespace(rev=rev, loc=loc, id=rid, offset=offs,
-                                ms=types.SimpleNamespace(info=info))
-    return ref, sidx, spos, seed_off
 
 
 def chain_oracle(ref, sidx, spos, seed_off):
@@ -2288,12 +2284,20 @@ def config3_seeds(small, work, rng):
             names, list(batch.ids), np.asarray(batch.lengths, np.int64))
 
 
-def chain_bytes(la, n_reads, n_records, n_live):
-    """What chain_records' kernel work must move: each seed's planes (five
-    u32 and a flag byte), the seed offsets, an idmap entry a live seed,
-    the counts, record offsets and records."""
-    return (la.numel() * 21 + (n_reads + 1) * 8 + n_live * 4
-            + n_reads * 4 + (n_reads + 1) * 8 + n_records * 28)
+def staging_read(n_seeds):
+    """One read whose records outgrow a tile's staging in csrc/chain.cu:
+    copy-1 seeds on consecutive occurrences whose sequence id changes every
+    third, so that each block of three closes with a record.  Returns
+    (ref-like, sidx, spos, seed_off)."""
+    import types
+    import numpy as np
+    occ = np.arange(n_seeds + 1, dtype=np.uint32)
+    info = np.full(n_seeds + 1, 1, np.uint8)
+    info[0] = 0
+    ref = types.SimpleNamespace(rev=occ, loc=occ, id=occ // 3,
+                                ms=types.SimpleNamespace(info=info))
+    return (ref, occ[1:].copy(), np.arange(n_seeds, dtype=np.int64) * 3,
+            np.array([0, n_seeds], np.int64))
 
 
 def phase_chain(small, work, launches, report):
@@ -2307,17 +2311,26 @@ def phase_chain(small, work, launches, report):
     [R, S] planes, bit for bit, at a cap that fits and one that
     overflows; then config 3's real seeds (the port's modmap seeding, 3,000
     reads of 10 kbp at -K 24 -W 31): chain_records against the literal
-    oracle of modmap.c:216-280 and timed beside mm_query_emit."""
+    oracle of modmap.c:216-280 and timed beside mm_query_emit; the edges
+    against chain_emit_ref, bit for bit: no reads, one read of 10,000
+    seeds, a read whose records outgrow a tile's staging, 100,000 reads with
+    no live seed, two calls in a row and calls alternated on two streams
+    (the look-back's scratch a stream)."""
     import numpy as np
     import torch
     from modimizer_tpu_torch import _build
     from modimizer_tpu_torch.parallel import chain as ch
+    from modimizer_tpu_torch.probes import probe_chain as pc
     from modimizer_tpu_torch.probes._timing import bound_ms
     from modimizer_tpu_torch.probes._timing import time_ms as device_ms
     dev = torch.device("cuda")
+    L = _build.lib()
+    if L.mz_chain_tile_reads() != ch.TILE_READS:
+        fail("chain: parallel/chain.py's TILE_READS = %d, the kernel's %d"
+             % (ch.TILE_READS, L.mz_chain_tile_reads()))
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    ref, sidx, spos, off = bench_chain_case(
+    ref, sidx, spos, off = pc.bench_chain_case(
         10_000 if small else CHAIN_READS, CHAIN_SPR)
     setup_s = time.perf_counter() - t0
     R = len(off) - 1
@@ -2385,30 +2398,32 @@ def phase_chain(small, work, launches, report):
         err = max(err, e)
         if e or bool(k_out[2]) != (cap == 1):
             fail("chain: chain_scan != chain_scan_ref at cap %d" % cap)
-    # the kernel's two launches of chain_emit, timed without its host sync
-    counts = torch.empty(R, dtype=torch.int32, device=dev)
-    rec_off = have[1].clone()
-    out = torch.empty_like(have[0])
-
-    def kernel_pair():
-        ch._launch(*planes, flags, pos_t, idmap, off_t, R, rec_off, 0, None,
-                   counts, None)
-        torch.cumsum(counts, 0, out=rec_off[1:])
-        ch._launch(*planes, flags, pos_t, idmap, off_t, R, rec_off, 0, out,
-                   None, None)
-    ms = device_ms(kernel_pair, 20)[0]
-    if not torch.equal(out, have[0]):
-        fail("chain: the timed launches wrote other records")
-    plain_ms = device_ms(lambda: ch.chain_emit_ref(
-        *planes, flags, pos_t, idmap, off_t), 3, 1)[0]
+    # the kernel's one launch, timed without chain_emit's host sync
+    args = (*planes, flags, pos_t, idmap, off_t)
+    ms = device_ms(lambda: pc.current_emit(args), 20)[0]
+    timed = pc.current_emit(args)
+    if not (torch.equal(timed[0][:have[0].shape[0]], have[0])
+            and torch.equal(timed[1], have[1])):
+        fail("chain: the timed launch wrote other records")
+    plain_ms = device_ms(lambda: ch.chain_emit_ref(*args), 3, 1)[0]
     n_rec = int(have[0].shape[0])
-    b_ms, b_by = bound_ms(chain_bytes(planes[0], R, n_rec, int(live.sum())))
+    # the bound from what the one launch must move on these seeds; beside
+    # it, the formula the count-and-emit form was held to
+    opens, retries = pc.block_loads(la, lb, ia, ib, is1, live, ref.id, off)
+    b_ms, b_by = bound_ms(pc.chain_bytes(planes[0].numel(), R, n_rec, opens,
+                                         retries))
+    old_ms = bound_ms(pc.chain_bytes_two_pass(planes[0].numel(), R, n_rec,
+                                              int(live.sum())))[0]
     bench = {"reads": R, "seeds": int(off[-1]), "records": n_rec,
-             "longest_read": S, "chain_records_first_s": first_s,
+             "live_seeds": int(live.sum()), "block_openings": opens,
+             "retries": retries, "longest_read": S,
+             "chain_records_first_s": first_s,
              "chain_records_s": warm_s, "plain_driver_s": plain_s,
              "native_mm_query_emit_s": native_s, "launches": n_launch,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "bound_share": b_ms / ms}
+             "bound_by": b_by, "bound_share": b_ms / ms,
+             "bound_ms_two_pass": old_ms,
+             "bound_share_two_pass": old_ms / ms}
     say(dict({"phase": "chain", "case": "bench_chain", "identical": True,
               "setup_s": setup_s}, **bench))
     # config 3's real seeds
@@ -2433,13 +2448,58 @@ def phase_chain(small, work, launches, report):
          "chain_records_s": c3_s, "native_mm_query_emit_s": c3_native,
          "oracle_s": oracle_s, "launches": c3_launch,
          "card": nvidia_smi_line()})
+    edges = chain_edges(L, ch, pc, dev, ref, sidx, spos, off, args, want)
+    say({"phase": "chain", "edges": edges, "identical": True})
     report["chain_scan"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, bound_share=b_ms / ms, library_ms=None,
         library="none: no PyTorch call runs a per-read sequential "
-        "automaton", timed="count pass, cumsum and emit pass on "
+        "automaton", timed="the offsets form's one launch on "
         "bench_chain's %d reads (%d seeds)" % (R, int(off[-1])),
-        bench_chain=bench)
+        bench_chain=bench, edges=edges)
+
+
+def chain_edges(L, ch, pc, dev, ref, sidx, spos, off, bench_args,
+                bench_want):
+    """chain_emit against chain_emit_ref, bit for bit, on the edges of its
+    one launch: no reads, one long read, a tile's staging outgrown, reads
+    with no live seed, two calls in a row, calls alternated on two streams
+    (bench_chain's reads, whose plain result is bench_want, and the long
+    read).  The plain version runs with a cap that holds the long reads'
+    records in one pass (it doubles its cap and runs again otherwise).
+    Returns {edge: (reads, records)}."""
+    import numpy as np
+    import torch
+    n_dead = len(off) - 1
+    r_long = pc.bench_chain_case(1, 10_000, seed=3)
+    dead = (ref, np.zeros_like(sidx), spos, off)
+    cases = {"no_reads": (ref, sidx[:0], spos[:0], off[:1]),
+             "one_read_10000": r_long, "staging": staging_read(1_800),
+             "no_live_%d" % n_dead: dead}
+    out, wants = {}, {}
+    for tag, case in cases.items():
+        args, _n = pc.device_seeds(*case, dev)
+        want = ch.chain_emit_ref(*args, cap=1024)
+        for _ in range(2 if tag == "one_read_10000" else 1):  # in a row
+            got = ch.chain_emit(*args)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                fail("chain: chain_emit != chain_emit_ref (%s)" % tag)
+        out[tag] = (len(case[3]) - 1, int(want[0].shape[0]))
+        wants[tag] = (args, want)
+    if out["staging"][1] <= L.mz_chain_rec_cap() or \
+            out["no_live_%d" % n_dead][1]:
+        fail("chain: the edge cases are not the edges: %s" % out)
+    # calls alternated on two streams, each with its own scratch
+    pairs = [(bench_args, bench_want), wants["one_read_10000"]]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for i in range(4):
+        args, want = pairs[i % 2]
+        with torch.cuda.stream(streams[i % 2]):
+            got = ch.chain_emit(*args)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail("chain: chain_emit on two streams differs (call %d)" % i)
+    out["two_streams"] = (4, 2 * sum(int(w[0].shape[0]) for _a, w in pairs))
+    return out
 
 
 # ---------------------------------------------------------------- multihost

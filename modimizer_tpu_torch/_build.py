@@ -239,9 +239,20 @@ def _declare(L):
     L.mz_chain_scan.argtypes = [
         p, p, p, p,            # la, lb, ia, ib
         p, p, p, p,            # flags, pos, idmap, seed_off
-        i64, p, i32,           # R, out_off (null: slots of cap), cap
-        p, p, p,               # out (null: count), counts, overflow
+        i64, i32,              # R, cap
+        p, p, p,               # out (slots), counts, overflow
         p]                     # stream
+    L.mz_chain_emit.restype = ctypes.c_int
+    L.mz_chain_emit.argtypes = [
+        p, p, p, p,            # la, lb, ia, ib
+        p, p, p, p,            # flags, pos, idmap, seed_off
+        i64, p, i64, u64,      # R, scratch, its words, seq
+        p, p,                  # rec_off, out
+        p]                     # stream
+    L.mz_chain_tile_reads.restype = ctypes.c_int
+    L.mz_chain_tile_reads.argtypes = []
+    L.mz_chain_rec_cap.restype = ctypes.c_int
+    L.mz_chain_rec_cap.argtypes = []
     L.mz_error_string.restype = ctypes.c_char_p
     L.mz_error_string.argtypes = [i32]
 

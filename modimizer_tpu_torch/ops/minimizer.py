@@ -36,8 +36,24 @@ from .packed import canonical_hashes, derive_tw, extract_kmers
 
 U64MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 PAD = (1 << 63) - 1
-TILE = 2048          # csrc/minimizer.cu's T: output positions a block
-W_TILE = 256         # the widest w on the kernel's tile path
+TILE = 4096          # csrc/minimizer.cu's SLOTS: positions a block holds
+W_TILE = 1024        # the widest w on the kernel's tile path
+
+
+def tile_geometry(w):
+    """csrc/minimizer.cu's tile for w <= W_TILE: (left halo HL, outputs T).
+    HL is w - 1 rounded up to 16; T the multiple of 16 that fits beside
+    both halos in TILE positions."""
+    h = w - 1
+    hl = -(-h // 16) * 16
+    return hl, (TILE - hl - h) // 16 * 16
+
+
+def wide_scratch(C):
+    """int64 words of scratch csrc/minimizer.cu's wide path (w > W_TILE)
+    takes for a chunk of C positions: P, S and P' a position, and four
+    aggregates a block of TILE."""
+    return 3 * C + 4 * -(-C // TILE)
 
 
 def minimizer_scan_host(sh, codes: np.ndarray):
@@ -182,7 +198,7 @@ def minimizer_chunk(sw, m_ext, n_win, base, *, k, w, factor1, C):
     out_h = torch.empty(C, dtype=torch.int64, device=dev)
     out_f = torch.empty(C, dtype=torch.bool, device=dev)
     out_e = torch.empty(C, dtype=torch.bool, device=dev)
-    scratch = (torch.empty(2 * C, dtype=torch.int64, device=dev)
+    scratch = (torch.empty(wide_scratch(C), dtype=torch.int64, device=dev)
                if w > W_TILE else None)
     L = _build.lib()
     with torch.cuda.device(dev):

@@ -144,17 +144,18 @@ def scratch_words(N, n_shards, mode):
     return 1 + t + t * n_shards
 
 
-def _scratch(dev, stream, words):
-    """This (device, stream)'s scratch, grown to ``words``, and the call's
-    sequence number.  A new scratch is zero: its ticket 0, and its flags of
-    sequence 0, which no call has.  A call leaves the ticket 0; its flags
-    carry its number, below every later call's, so none is read as ready
-    by a later call."""
-    ent = _SCRATCH.get((dev.index, stream))
-    if ent is None or ent[0].numel() < words:
-        calls = 0 if ent is None else ent[1]
+def _scratch(dev, stream, words, pool=_SCRATCH, max_seq=1 << 62):
+    """This (device, stream)'s scratch in ``pool`` (a kernel's own dict),
+    grown to ``words``, and the call's sequence number.  A new scratch is
+    zero: its ticket 0, and its flags of sequence 0, which no call has.  A
+    call leaves the ticket 0; its flags carry its number, below every later
+    call's, so none is read as ready by a later call.  The numbers start
+    again on a new zeroed scratch before they reach ``max_seq``."""
+    ent = pool.get((dev.index, stream))
+    if ent is None or ent[0].numel() < words or ent[1] + 1 >= max_seq:
+        calls = 0 if ent is None or ent[1] + 1 >= max_seq else ent[1]
         ent = [torch.zeros(words, dtype=torch.int64, device=dev), calls]
-        _SCRATCH[(dev.index, stream)] = ent
+        pool[(dev.index, stream)] = ent
     ent[1] += 1
     return ent[0], ent[1]
 

@@ -10,11 +10,12 @@ gated on n2 > 2 (the reference's quirk, modmap.c:269).
 
 ``chain_scan_ref`` is the plain PyTorch version with the JAX function's
 ``[R, S]`` signature: every read steps in lockstep over the padded seed
-axis and its records land in ``cap`` slots.  The CUDA kernel
-``csrc/chain.cu`` runs one read a thread from CSR seed offsets, with no
-padding: ``chain_scan`` launches it in the slots form (the JAX output),
-``chain_emit`` as a count pass and an emit pass to exact offsets, which
-takes the place of the JAX driver's cap-doubling retry.
+axis and its records land in ``cap`` slots.  The CUDA kernels in
+``csrc/chain.cu`` run one read a thread from CSR seed offsets, with no
+padding: ``chain_scan`` launches the slots form (the JAX output),
+``chain_emit`` the offsets form, one pass over tiles of reads with a
+look-back across tiles that places every record at its exact offset,
+which takes the place of the JAX driver's cap-doubling retry.
 ``chain_records`` is the host driver, read for read the JAX one's output.
 As in the JAX CLI, ``modmap`` does not call it: it keeps the native
 ``mm_query_emit``.
@@ -27,10 +28,13 @@ import numpy as np
 import torch
 
 from .. import _build, require_cuda
+from ..ops.route import _scratch
 
 F = 7  # record fields: pos[i0], pos[iN], loc0, locN, n1, n2, is_final
 _M32 = 0xFFFFFFFF
 IS1, LIVE = 1, 2    # csrc/chain.cu's seed flags
+TILE_READS = 128    # csrc/chain.cu's TPB: reads a tile of the offsets form
+_SCRATCH = {}       # (device index, stream) -> [scratch, calls so far]
 
 
 def _u(x):
@@ -124,20 +128,43 @@ def _planes_check(planes, idmap):
                              "int32")
 
 
-def _launch(la, lb, ia, ib, flags, pos, idmap, seed_off, R, out_off, cap,
-            out, counts, overflow):
-    dev = la.device
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_slots(la, lb, ia, ib, flags, pos, idmap, seed_off, R, cap, out,
+                  counts, overflow):
     L = _build.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = L.mz_chain_scan(
-            ptr(la), ptr(lb), ptr(ia), ptr(ib), ptr(flags), ptr(pos),
-            ptr(idmap), ptr(seed_off), R, ptr(out_off), cap, ptr(out),
-            ptr(counts), ptr(overflow), stream)
+    with torch.cuda.device(la.device):
+        rc = L.mz_chain_scan(*(_ptr(t) for t in (la, lb, ia, ib, flags, pos,
+                                                  idmap, seed_off)),
+                             R, cap, _ptr(out), _ptr(counts), _ptr(overflow),
+                             _stream(la.device))
     _build.check(rc, "chain_scan")
+    _build.LAUNCHES["chain_scan"] += 1
+
+
+def _launch_emit(la, lb, ia, ib, flags, pos, idmap, seed_off, R, rec_off,
+                 out, L=None):
+    """csrc/chain.cu's offsets form: one launch, rec_off and the records
+    (out: at least floor(seeds / 3) rows) for R >= 1 reads.  ``L``: another
+    build of the kernel with the same interface (a probe's), or the
+    port's."""
+    dev = la.device
+    L = L or _build.lib()
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        scratch, seq = _scratch(dev, stream, 1 + -(-R // TILE_READS),
+                                pool=_SCRATCH, max_seq=1 << 30)
+        rc = L.mz_chain_emit(*(_ptr(t) for t in (la, lb, ia, ib, flags, pos,
+                                                  idmap, seed_off)),
+                             R, scratch.data_ptr(), scratch.numel(), seq,
+                             rec_off.data_ptr(), out.data_ptr(), stream)
+    _build.check(rc, "chain_emit")
     _build.LAUNCHES["chain_scan"] += 1
 
 
@@ -166,8 +193,8 @@ def chain_scan(loc_a, loc_b, id_a, id_b, is1, live, pos, idmap, *, cap):
     out = torch.empty((R, cap, F), dtype=torch.int32, device=dev)
     counts = torch.empty(R, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    _launch(*planes[:4], flags, planes[4], idmap, seed_off, R, None, cap,
-            out, counts, overflow)
+    _launch_slots(*planes[:4], flags, planes[4], idmap, seed_off, R, cap,
+                  out, counts, overflow)
     return out, counts, overflow
 
 
@@ -224,29 +251,31 @@ def chain_emit(la, lb, ia, ib, flags, pos, idmap, seed_off, *, cap=8,
     """Every read's records at exact offsets: (records int32 [M, F], rec_off
     int64 [R+1]; read r's records are rows rec_off[r]..rec_off[r+1]).  Seeds
     in CSR form (int32 u32 planes, the flags byte of ``seed_flags``,
-    seed_off int64 [R+1]).  CUDA tensors: csrc/chain.cu's count pass, a
-    cumsum, its emit pass (``cap`` and ``tile_reads`` are the plain
-    version's).  CPU tensors: chain_emit_ref."""
+    seed_off int64 [R+1]).  CUDA tensors: csrc/chain.cu's offsets form, one
+    launch into rows allocated at floor(seeds / 3) (every record closes a
+    block of three live seeds or more), of which the first M are returned,
+    copied when they fill under half of them (``cap`` and ``tile_reads``
+    are the plain version's).  CPU tensors: chain_emit_ref."""
     if la.device.type == "cpu":
         return chain_emit_ref(la, lb, ia, ib, flags, pos, idmap, seed_off,
                               cap=cap, tile_reads=tile_reads)
     if la.device.type != "cuda":
         raise ValueError("chain_emit: unsupported device %s" % la.device)
     _planes_check((la, lb, ia, ib, pos), idmap)
+    if la.numel() // 3 >= 1 << 31:
+        raise ValueError("chain_emit: %d seeds; at most 3 * 2^31 - 1"
+                         % la.numel())
     dev = la.device
     R = seed_off.numel() - 1
-    counts = torch.empty(R, dtype=torch.int32, device=dev)
-    rec_off = torch.zeros(R + 1, dtype=torch.int64, device=dev)
-    # the count pass (offsets form, no output), then the offsets
-    _launch(la, lb, ia, ib, flags, pos, idmap, seed_off, R, rec_off, 0,
-            None, counts, None)
-    torch.cumsum(counts, 0, out=rec_off[1:])
-    total = int(rec_off[-1])
-    out = torch.empty((total, F), dtype=torch.int32, device=dev)
-    if total:
-        _launch(la, lb, ia, ib, flags, pos, idmap, seed_off, R, rec_off, 0,
-                out, None, None)
-    return out, rec_off
+    if R == 0:
+        return (torch.empty((0, F), dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev))
+    rec_off = torch.empty(R + 1, dtype=torch.int64, device=dev)
+    out = torch.empty((la.numel() // 3, F), dtype=torch.int32, device=dev)
+    _launch_emit(la, lb, ia, ib, flags, pos, idmap, seed_off, R, rec_off, out)
+    M = int(rec_off[-1])
+    # a view would keep every row of the allocation alive
+    return (out[:M] if 2 * M >= out.shape[0] else out[:M].clone()), rec_off
 
 
 def seed_planes(ref, sidx, spos):

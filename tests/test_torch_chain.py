@@ -248,11 +248,15 @@ MUTANTS = {
     # no copy-2 retry
     "no_retry": [("if (end && !one) {", "if (false) {")],
     # seed ordinals that skip the dead seeds
-    "live_ordinal": [("const uint32_t t = (uint32_t)(s - a);",
-                      "const uint32_t t = (uint32_t)(n_live++);"),
-                     ("Block B{0, 0, 0, 0, 0, 0, 0, 0};",
-                      "Block B{0, 0, 0, 0, 0, 0, 0, 0};\n"
-                      "    uint32_t n_live = 0;")],
+    "live_ordinal": [("chain_step(B, n, (uint32_t)(s - a), S.la[s]",
+                      "chain_step(B, n, live += (S.flags[s] & LIVE) != 0, "
+                      "S.la[s]"),
+                     ("    int n = 0;\n    for (int64_t s = a; s < b; ++s)",
+                      "    int n = 0;\n    uint32_t live = 0;\n"
+                      "    for (int64_t s = a; s < b; ++s)")],
+    # the block's cached sequence id taken from the seed's first
+    # occurrence, not from idmap at the occurrence the block opens at
+    "cached_id_from_ia": [("B.id0 = idmap[loc];", "B.id0 = ia;")],
 }
 
 
@@ -272,6 +276,9 @@ def build_host(out_dir, name, edits=()):
     p = ctypes.c_void_p
     L.mz_chain_host.argtypes = [p] * 8 + [ctypes.c_int64, p, ctypes.c_int,
                                           p, p, p]
+    L.mz_chain_host_tile.restype = ctypes.c_int64
+    L.mz_chain_host_tile.argtypes = [p] * 8 + [ctypes.c_int64,
+                                               ctypes.c_int64, p, p]
     return L
 
 
@@ -334,8 +341,30 @@ def gap_case():
     return ref, sidx, np.arange(len(sidx), dtype=np.int64) * 7, off
 
 
+def second_occurrence_case():
+    """Copy-2 mods whose first occurrences lie scattered in sequence 0 and
+    whose second ones run colinear in sequence 1: every block after the
+    first opens at a second occurrence (the retry), and the chain goes on
+    only if the block keeps that occurrence's sequence id."""
+    n = 40
+    info = np.full(n + 1, 2, np.uint8)
+    info[0] = 0
+    loc = (2 * np.arange(n + 1)).astype(np.uint32)
+    i = np.arange(n + 1)
+    rev = np.empty(2 * n + 2, np.uint32)
+    rev[0::2] = 100 + (i * 53) % 997
+    rev[1::2] = 5000 + i
+    rid = (np.arange(6000) >= 3000).astype(np.uint32)
+    ref = FakeRef(rev, loc, rid, info)
+    reads = [list(range(1, 31)), list(range(5, 25)), [3, 9, 4, 10, 5, 11]]
+    off = np.concatenate([[0], np.cumsum([len(r) for r in reads])])
+    sidx = np.concatenate(reads).astype(np.uint32)
+    return ref, sidx, np.arange(len(sidx), dtype=np.int64) * 5, off
+
+
 def cases():
     yield gap_case()
+    yield second_occurrence_case()
     yield make_case(1, n_reads=60)
     yield make_case(3, n_reads=60)
     yield bench_case(800, 30, n_mods=20000)
@@ -386,3 +415,211 @@ def test_chain_kernel_mutants_fail(host_libs, mutant):
         differ += not (np.array_equal(got[1], want[1])
                        and np.array_equal(got[0], want[0]))
     assert differ > 0
+
+
+# ------------------------------- csrc/chain.cu's offsets form, tile by tile
+
+AGGREGATE, PREFIX = 1, 2
+
+
+class ChainScratch:
+    """The offsets kernel's scratch: the ticket and a flag word a tile
+    (seq << 34 | status << 32 | value), as a call leaves it."""
+
+    def __init__(self, ntiles):
+        self.ticket = 0
+        self.flags = [0] * ntiles
+
+
+def chain_tiles_lanes(L, ins, R, scratch, seq, order, mutant=None):
+    """mz_chain_emit's launch with its tiles' blocks interleaved, as
+    route_tiles_lanes runs route.cu's: ``order`` a numpy Generator (the
+    next block to advance drawn at random; each block's staged records
+    shuffled, as the shared atomic may order them) or "reverse" (every
+    ticket drawn, then the latest block that can advance).  A block: its
+    ticket; its reads through mz_chain_host_tile (the warps' chunks and
+    the staging) and its published count (tile 0: its prefix); its
+    look-back over windows of TPB tiles, waiting while a flag lacks this
+    call's seq; its published prefix; rec_off and its records, from the
+    staging in tile order or, past REC_CAP, each read again at its offset.
+    Mutant "aggregate_as_prefix": the look-back takes the nearest tile's
+    count as the records before it.  Returns (records [M, 7] u32, rec_off,
+    whether a tile overflowed its staging)."""
+    TPB, CAP = L.mz_chain_tile_reads(), L.mz_chain_rec_cap()
+    ptrs = [x.ctypes.data for x in ins]
+    seed_off = ins[-1]
+    if R == 0:
+        return np.zeros((0, 7), np.uint32), np.zeros(1, np.int64), False
+    ntiles = -(-R // TPB)
+    rows = len(ins[0]) // 3
+    out = np.full((rows, 7), 0xDEADBEEF, np.uint32)
+    hits = np.zeros(rows, np.int64)
+    rec_off = np.full(R + 1, -7, np.int64)
+    over = []
+    rng = order if not isinstance(order, str) else np.random.default_rng(0)
+
+    def status(q):
+        f = scratch.flags[q]
+        return (f >> 32) & 3 if f >> 34 == seq else 0
+
+    def block():
+        t = scratch.ticket                                   # atomicInc
+        scratch.ticket = 0 if t >= ntiles - 1 else t + 1
+        yield True
+        counts = np.full(TPB, -1, np.int32)
+        staged = np.zeros((CAP, 8), np.uint32)
+        total = L.mz_chain_host_tile(*ptrs[:8], R, t, counts.ctypes.data,
+                                     staged.ctypes.data)
+        assert total == counts.sum()
+        excl = np.cumsum(counts) - counts
+        scratch.flags[t] = seq << 34 | (PREFIX if t == 0 else AGGREGATE) \
+            << 32 | int(total)
+        yield True
+        ex, p = 0, t - 1
+        while p >= 0:
+            window = range(p, max(p - TPB, -1), -1)
+            while not all(status(q) for q in window):
+                yield False                                  # spinning
+            if mutant == "aggregate_as_prefix":
+                ex += scratch.flags[p] & 0xFFFFFFFF
+                break
+            st = [status(q) for q in window]
+            last = next((i for i, v in enumerate(st) if v == PREFIX), None)
+            found = last is not None
+            last = last if found else len(st) - 1
+            ex += sum(scratch.flags[p - i] & 0xFFFFFFFF
+                      for i in range(last + 1))
+            p = -1 if found else p - last - 1
+        if t > 0:
+            scratch.flags[t] = seq << 34 | PREFIX << 32 | int(ex + total)
+        yield True
+        r = t * TPB + np.arange(TPB)
+        live = r < R
+        rec_off[r[live]] = ex + excl[live]
+        if t == ntiles - 1:
+            rec_off[R] = ex + total
+        if total <= CAP:
+            st = staged[rng.permutation(total)]
+            row = ex + excl[st[:, 7] >> 24] + (st[:, 7] & 0xFFFFFF)
+            out[row] = st[:, :7]
+            hits[row] += 1
+        else:
+            over.append(t)
+            for i in np.nonzero(live)[0]:
+                at = np.array([ex + excl[i]], np.int64)
+                L.mz_chain_host(*ptrs[:7], seed_off.ctypes.data + 8 * int(
+                    r[i]), 1, at.ctypes.data, 0, out.ctypes.data, None, None)
+                hits[ex + excl[i]:ex + excl[i] + counts[i]] += 1
+
+    waiting = [block() for _ in range(ntiles)]
+    live_b = []
+    if order == "reverse":             # every ticket drawn first
+        for b in waiting:
+            next(b)
+        live_b, waiting = waiting, []
+    while live_b or waiting:
+        if order == "reverse":         # the latest block that can advance
+            for b in reversed(live_b):
+                went = next(b, None)
+                if went is None:
+                    live_b.remove(b)
+                if went is not False:
+                    break
+            else:
+                raise AssertionError("every block spins: a deadlock")
+            continue
+        i = int(rng.integers(len(live_b) + bool(waiting)))
+        if i == len(live_b):
+            live_b.append(waiting.pop(0))
+        if next(live_b[i], None) is None:
+            live_b.pop(i)
+    assert scratch.ticket == 0, "the ticket is not left 0"
+    M = int(rec_off[-1])
+    assert (hits[:M] == 1).all(), "a record row written twice or never"
+    return out[:M], rec_off, bool(over)
+
+
+def staging_case(n_reads=130, big=1800):
+    """One read whose records outgrow a tile's staging (copy-1 seeds on
+    consecutive occurrences whose sequence id changes every third, so each
+    block of three closes with a record), among short reads; a second
+    tile after it."""
+    n = big + 4
+    info = np.full(n + 1, 1, np.uint8)
+    info[0] = 0
+    arange = np.arange(n + 1, dtype=np.uint32)
+    ref = FakeRef(arange, arange, (arange // 3).astype(np.uint32), info)
+    reads = [list(range(1, 9))] * 5 + [list(range(1, big + 1))] \
+        + [list(range(4, 13)), [0, 0]] * ((n_reads - 6) // 2)
+    off = np.concatenate([[0], np.cumsum([len(r) for r in reads])])
+    sidx = np.concatenate(reads).astype(np.uint32)
+    return ref, sidx, np.arange(len(sidx), dtype=np.int64) * 3, off
+
+
+def dead_case(n_reads=300):
+    """Reads whose seeds are all dead (missing or copy M): no records."""
+    ref, _s, _p, _o = make_case(2)
+    multi = np.nonzero((ref.ms.info & 3) == 3)[0]
+    rng = np.random.default_rng(9)
+    ns = rng.integers(0, 12, n_reads)
+    off = np.concatenate([[0], np.cumsum(ns)]).astype(np.int64)
+    sidx = np.where(rng.random(off[-1]) < 0.5, 0,
+                    rng.choice(multi, off[-1])).astype(np.uint32)
+    return ref, sidx, np.arange(off[-1], dtype=np.int64), off
+
+
+TILE_CASES = {
+    "gap": gap_case, "make1": lambda: make_case(1, n_reads=300),
+    "bench": lambda: bench_case(800, 30, n_mods=20000),
+    "staging": staging_case, "one_read": lambda: make_case(4, n_reads=1),
+    "dead": dead_case,
+    "no_reads": lambda: (make_case(1)[0], np.zeros(0, np.uint32),
+                         np.zeros(0, np.int64), np.zeros(1, np.int64)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_chain_tiles_equal_ref(host_libs, name):
+    """Tiles finishing in a shuffled order and in reverse, on a scratch
+    an earlier call with more tiles left, against chain_emit_ref and the
+    oracle."""
+    ref, sidx, spos, off = TILE_CASES[name]()
+    ins = csr_inputs(ref, sidx, spos, off)
+    R = len(off) - 1
+    want_rec, want_off = tchain.chain_emit_ref(
+        *[t32(x) if x.dtype != np.uint8 else torch.from_numpy(x)
+          for x in ins], cap=2, tile_reads=64)
+    L = host_libs["kernel"]
+    assert L.mz_chain_tile_reads() == tchain.TILE_READS
+    big = make_case(5, n_reads=700)
+    scratch = ChainScratch(10)
+    seq = 1
+    chain_tiles_lanes(L, csr_inputs(*big), 700, scratch, seq,
+                      np.random.default_rng(1))      # stale descriptors
+    for order in (np.random.default_rng(seq), "reverse"):
+        seq += 1
+        out, rec_off, over = chain_tiles_lanes(L, ins, R, scratch, seq,
+                                               order)
+        assert np.array_equal(rec_off, want_off.numpy())
+        assert np.array_equal(out, want_rec.numpy().view(np.uint32))
+        assert over == (name == "staging")
+    got = [[tuple(r) for r in out[a:b].tolist()]
+           for a, b in zip(rec_off[:-1], rec_off[1:])]
+    assert got == oracle(ref, sidx, spos, off)
+    if name == "dead":
+        assert rec_off[-1] == 0 and R > 2 * L.mz_chain_tile_reads()
+
+
+def test_chain_tiles_aggregate_as_prefix_fails(host_libs):
+    ref, sidx, spos, off = bench_case(600, 30, n_mods=20000)
+    ins = csr_inputs(ref, sidx, spos, off)
+    want = tchain.chain_emit_ref(
+        *[t32(x) if x.dtype != np.uint8 else torch.from_numpy(x)
+          for x in ins], cap=2, tile_reads=64)[1].numpy()
+    try:                # a row written twice or never also fails it
+        got = chain_tiles_lanes(host_libs["kernel"], ins, len(off) - 1,
+                                ChainScratch(8), 1, "reverse",
+                                mutant="aggregate_as_prefix")[1]
+    except AssertionError:
+        return
+    assert not np.array_equal(got, want)

@@ -13,8 +13,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from modimizer_tpu_torch.probes import (probe_chain_time, probe_densify,
-                                        probe_front, probe_front_mxu,
+from modimizer_tpu_torch.probes import (probe_chain, probe_chain_time,
+                                        probe_densify, probe_front,
+                                        probe_front_mxu, probe_minimizer,
                                         probe_pallas_front,
                                         probe_pallas_parts, probe_route,
                                         probe_scan_compact)
@@ -112,6 +113,87 @@ def test_probe_route_runs_on_cpu(capsys, argv, shapes):
 def test_probe_route_bad_arguments_exit_nonzero(argv):
     with pytest.raises(SystemExit) as e:
         probe_route.main(argv + ["--small"], device="cpu")
+    assert e.value.code not in (0, None)
+
+
+def test_probe_minimizer_runs_on_cpu(capsys):
+    assert probe_minimizer.main(["--small"], device="cpu") == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["shape"] for x in lines] == list(probe_minimizer.SHAPES)
+    for x in lines:
+        assert x["check"] == {"current": "match"}
+        assert x["path"] == ("tile" if x["w"] <= 1024 else "wide")
+        assert x["positions"] >= 1 << 15 and x["ms"] is None
+
+
+def test_probe_chain_runs_on_cpu(capsys):
+    assert probe_chain.main(["--small"], device="cpu") == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["shape"] for x in lines] == list(probe_chain.SHAPES)
+    bench, longest, copy = lines
+    assert bench["check"] == longest["check"] == {"current": "match"}
+    assert bench["reads"] == 10_000 and bench["records"] > 10_000
+    assert (bench["records"] <= bench["block_openings"]
+            <= bench["live_seeds"] < bench["seeds"])
+    assert longest["reads"] == 1 and copy["check"] == "is a copy"
+    assert all(x["ms"] is None and x["device"] == "cpu" for x in lines)
+
+
+def literal_loads(ref, sidx, seed_off):
+    """Block openings and copy-2 retries of modmap.c:216-280, seed by seed
+    (the reference's queryProcess, as tests/test_torch_chain.py's oracle
+    transcribes it)."""
+    info = ref.ms.info
+    opens = retries = 0
+    for rd in range(len(seed_off) - 1):
+        loc0 = locN = i0 = iN = 0
+        for t in range(seed_off[rd], seed_off[rd + 1]):
+            idx = sidx[t]
+            if idx == 0 or (info[idx] & 3) == 3:
+                continue
+            loc = int(ref.rev[ref.loc[idx]])
+
+            def end_block(loc):
+                if ref.id[loc] != ref.id[loc0]:
+                    return True
+                if loc0 < locN:
+                    d = locN - loc0 - iN + i0
+                    return loc < locN or d > 50 or d < -50
+                if loc0 > locN:
+                    d = loc0 - locN - iN + i0
+                    return loc > locN or d > 50 or d < -50
+                return False
+            end = loc0 == 0 or end_block(loc)
+            if end and loc0 and (info[idx] & 3) != 1:
+                retries += 1
+                loc = int(ref.rev[ref.loc[idx] + 1])
+                end = end_block(loc)
+            if end:
+                opens += 1
+                loc0, i0 = loc, t - seed_off[rd]
+            locN, iN = loc, t - seed_off[rd]
+    return opens, retries
+
+
+def test_probe_chain_block_loads_equal_a_literal_count():
+    """The bound's data-dependent loads (block_loads, the automaton over
+    every read at once) against the reference's loop, seed by seed."""
+    from modimizer_tpu_torch.parallel import chain as ch
+    ref, sidx, spos, off = probe_chain.bench_chain_case(400, 30)
+    la, lb, ia, ib, is1, live, _ps = ch.seed_planes(ref, sidx, spos)
+    got = probe_chain.block_loads(la, lb, ia, ib, is1, live, ref.id, off)
+    assert got == literal_loads(ref, sidx, off)
+    assert got[0] > 400 and got[1] > 0
+
+
+@pytest.mark.parametrize("mod,argv", [
+    (probe_minimizer, ["bogus"]), (probe_minimizer, ["--part"]),
+    (probe_minimizer, ["--baseline", "old.cu"]),
+    (probe_chain, ["bogus"]), (probe_chain, ["--part"]),
+    (probe_chain, ["--baseline", "old.cu"])])
+def test_probe_minimizer_chain_bad_arguments_exit_nonzero(mod, argv):
+    with pytest.raises(SystemExit) as e:
+        mod.main(argv + ["--small"], device="cpu")
     assert e.value.code not in (0, None)
 
 
