@@ -13,7 +13,8 @@ sharded merge of two real-size modsets against the native merge, the mesh
 lookup table, the routed builder and a snapshot), the all-window
 minimizer scan of a 64 Mbp sequence (``minimizer``), colinear chaining on
 the chaining benchmark's seeds and on config 3's (``chain``), and the
-multi-process build and ``modutils`` under torchrun (``multihost``).
+multi-process build, ``modutils`` and config 3's ``modmap`` under torchrun
+(``multihost``).
 
     python3 chip_smoke.py                 # every phase, one CUDA card
     python3 chip_smoke.py --phases env,build,kernels --small
@@ -1372,6 +1373,30 @@ def app_case(tool, argv, work, tag, launches, path_kernels=None, files=(),
     return co
 
 
+def config3_argv(small, work, rng=None):
+    """modmap's argv on config 3, its reference and reads written to
+    ``work`` from ``rng``; with no ``rng``, only if they are not there
+    yet, and from ``default_rng(SEED)`` (the same draws as in ``apps``)."""
+    import numpy as np
+    c3 = dict(CONFIG3, **({"ref_len": SMALL["ref_len"], "n_reads":
+                          SMALL["n_reads"]} if small else {}))
+    ref_fa, reads = (os.path.join(work, n) for n in ("ref.fa",
+                                                     "map_reads.fa"))
+    if rng is not None or not (os.path.exists(ref_fa)
+                               and os.path.exists(reads)):
+        rng = np.random.default_rng(SEED) if rng is None else rng
+        t0 = time.perf_counter()
+        ref = rng.integers(0, 4, c3["ref_len"]).astype(np.uint8)
+        write_fasta(ref_fa, [("chr20", ref)])
+        write_fasta(reads, sampled_reads(rng, ref, c3["n_reads"],
+                                         c3["read_len"], c3["sub"],
+                                         c3["rc_every"]))
+        del ref
+        say({"phase": "apps", "data": "config3", "seconds":
+             time.perf_counter() - t0, **c3})
+    return ["-K", c3["k"], "-W", c3["w"], "-f", ref_fa, "-q", reads]
+
+
 def phase_apps(small, work, launches):
     """modmap, modasm and modrep through their main(argv, device=cuda), each
     against the port's host path (MODIMIZER_SCAN=host, and
@@ -1384,19 +1409,7 @@ def phase_apps(small, work, launches):
     import numpy as np
     rng = np.random.default_rng(SEED)
     f = os.path.join
-    t0 = time.perf_counter()
-    # config 3: modmap
-    c3 = dict(CONFIG3, **({"ref_len": SMALL["ref_len"], "n_reads":
-                          SMALL["n_reads"]} if small else {}))
-    ref = rng.integers(0, 4, c3["ref_len"]).astype(np.uint8)
-    write_fasta(f(work, "ref.fa"), [("chr20", ref)])
-    write_fasta(f(work, "map_reads.fa"), sampled_reads(
-        rng, ref, c3["n_reads"], c3["read_len"], c3["sub"], c3["rc_every"]))
-    del ref
-    say({"phase": "apps", "data": "config3", "seconds":
-         time.perf_counter() - t0, **c3})
-    app_case("modmap", ["-K", c3["k"], "-W", c3["w"], "-f", f(work, "ref.fa"),
-                        "-q", f(work, "map_reads.fa")], work, "modmap.config3",
+    app_case("modmap", config3_argv(small, work, rng), work, "modmap.config3",
              launches)
 
     # config 5: modset on the builder path, then modasm
@@ -2507,14 +2520,13 @@ def chain_edges(L, ch, pc, dev, ref, sidx, spos, off, bench_args,
 MH_READS = 200_000                # bench.py's reads, default_rng(42)
 
 
-def modutils_cli(argv, nproc, env_extra=None):
-    """modutils as a fresh process (nproc 0) or under torchrun with
-    ``nproc`` ranks: (stdout with the timing lines dropped, wall s)."""
-    cmd = ([sys.executable, "-m", "modimizer_tpu_torch.cli.modutils"]
-           if not nproc else
+def port_cli(tool, argv, nproc, env_extra=None):
+    """The port's ``tool`` as a fresh process (nproc 0) or under torchrun
+    with ``nproc`` ranks: (stdout with the timing lines dropped, wall s)."""
+    module = "modimizer_tpu_torch.cli." + tool
+    cmd = ([sys.executable, "-m", module] if not nproc else
            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc_per_node", str(nproc), "-m",
-            "modimizer_tpu_torch.cli.modutils"])
+            "--nproc_per_node", str(nproc), "-m", module])
     env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
     for v in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
@@ -2524,8 +2536,8 @@ def modutils_cli(argv, nproc, env_extra=None):
                        capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if r.returncode:
-        fail("modutils (nproc %d) exited %d:\n%s" % (nproc, r.returncode,
-                                                     r.stderr[-3000:]))
+        fail("%s (nproc %d) exited %d:\n%s" % (tool, nproc, r.returncode,
+                                               r.stderr[-3000:]))
     return _TIMING.sub("", r.stdout), wall
 
 
@@ -2545,8 +2557,9 @@ def phase_multihost(small, work, launches):
     then ``modutils -c 26 16 16 17 -a reads.fa -w out.mod`` as a fresh
     process and under ``torch.distributed.run --standalone`` with one rank
     (and with every card, where the machine has more than one), stdout
-    and .mod byte-identical.  Under torchrun (WORLD_SIZE > 1, one process
-    a card): four uneven shards (the first rank takes half the reads)
+    and .mod byte-identical; then config 3's modmap likewise
+    (``modmap_torchrun``).  Under torchrun (WORLD_SIZE > 1, one process a
+    card): four uneven shards (the first rank takes half the reads)
     against the one-device builder."""
     import datetime
     import numpy as np
@@ -2630,13 +2643,13 @@ def phase_multihost(small, work, launches):
     def argv(tag):
         return ["-c", 26, 16, 16, 17, "-a", fa, "-w",
                 os.path.join(work, tag + ".mod")]
-    ref_out, ref_s = modutils_cli(argv("one"), 0)
+    ref_out, ref_s = port_cli("modutils", argv("one"), 0)
     with open(os.path.join(work, "one.mod"), "rb") as f:
         ref_mod = f.read()
     walls = {"one_process": ref_s}
     for nproc in sorted({1, torch.cuda.device_count()}):
-        out, wall = modutils_cli(
-            argv("ranks%d" % nproc), nproc,
+        out, wall = port_cli(
+            "modutils", argv("ranks%d" % nproc), nproc,
             {"OMP_NUM_THREADS": str(max(1, cpus // nproc))})
         with open(os.path.join(work, "ranks%d.mod" % nproc), "rb") as f:
             same = f.read() == ref_mod
@@ -2647,6 +2660,59 @@ def phase_multihost(small, work, launches):
         walls["torchrun_%d" % nproc] = wall
     say({"phase": "multihost", "case": "modutils", "bp": n_reads * 1000,
          "identical": True, "wall_s": walls, "card": nvidia_smi_line()})
+    modmap_torchrun(small, work, launches)
+
+
+def modmap_torchrun(small, work, launches):
+    """``modmap -K 24 -W 31 -f ref -q reads`` on config 3 as a fresh
+    process and under ``torch.distributed.run --standalone`` with one rank
+    (and with every card, where the machine has more than one), in turns,
+    stdout byte-identical; then once in this process with torchrun's variables
+    at world size 1 (the main path: launch counts zeroed before and read
+    after), where the -q lookup is the mesh DeviceTable's: route_rows in
+    lookup mode, the exchange through NCCL, find_sorted."""
+    import socket
+    import torch
+    from modimizer_tpu_torch import _build
+    argv = config3_argv(small, work)
+    cpus = os.cpu_count() or 1
+    # in turns: one process, each rank count up and down, one process
+    ranks = sorted({1, torch.cuda.device_count()})
+    walls, ref_out = {}, None
+    for nproc in [0] + ranks + ranks[::-1] + [0]:
+        out, wall = port_cli("modmap", argv, nproc, nproc and {
+            "OMP_NUM_THREADS": str(max(1, cpus // nproc))})
+        ref_out = out if ref_out is None else ref_out
+        if out != ref_out or "\nQ\tr0\t" not in out:
+            fail("modmap under torchrun (nproc %d) differs from one process"
+                 % nproc)
+        walls.setdefault("torchrun_%d" % nproc if nproc else "one_process",
+                         []).append(wall)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    kernels = PATH_KERNELS["modmap"] + ("route_rows",)
+    _build.reset_launches()
+    out, _err, wall, made, stages = run_app(
+        "modmap", argv, work, "modmap.torchrun", env=dict(
+            WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+    counts = {n: _build.LAUNCHES[n] for n in kernels}
+    if not all(counts.values()):
+        fail("modmap under torchrun: a kernel was never launched: %s"
+             % counts)
+    if not made or any(not s.used_device or s.device.type != "cuda"
+                       for s in made):
+        fail("modmap under torchrun: a scan did not run on the card")
+    if out != ref_out:
+        fail("modmap under torchrun in process differs from one process")
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    walls["torchrun_1_in_process"] = [wall]
+    say({"phase": "multihost", "case": "modmap.config3", "argv":
+         [str(a) for a in argv], "identical": True, "stdout_bytes":
+         len(out), "wall_s": walls, "launches": counts, "stages_s": stages,
+         "card": nvidia_smi_line()})
 
 
 def main(argv=None):

@@ -11,7 +11,16 @@ in the JAX CLI.  The greedy colinear chaining over copy1/copy2 seeds
 reproduced literally including its quirks (U32 wraparound in the
 diagonal-difference test, the n2>2 final-block gate).
 
+Under torchrun (``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` set, one
+process a card) every rank parses and scans the reference and the queries
+on its own card and runs every command; the table is a ``DeviceTable`` on
+the mesh of all ranks (rank r keeps the k-mers it owns) and each ``-q``
+batch is one SPMD ``find`` over it, the JAX CLI's table over every device
+of its process.  Rank 0 alone chains and writes stdout, ``-o`` and ``-w``.
+
     python -m modimizer_tpu_torch.cli.modmap -K 24 -W 31 -f ref.fa -q reads.fa
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m modimizer_tpu_torch.cli.modmap -K 24 -W 31 -f ref.fa -q reads.fa
 """
 
 import sys
@@ -23,6 +32,7 @@ from ..core.reference import Reference
 from ..core.seqhash import Seqhash
 from ..io import seqio
 from ..ops.seqhash import ModimizerScanner
+from ..parallel.mesh import torchrun_main
 from ..utils import profiling
 from ..utils.timers import Timer
 from .common import cli_guard, Args, OutFile, die
@@ -45,29 +55,40 @@ def usage(params, num_threads):
     e("  -q | --query <query fasta file>\n")
 
 
-def _lookup(ref: Reference, scanner, kmers):
+def _lookup(ref: Reference, scanner, kmers, mesh=None):
     """The query k-mers' modset ids, 0 where absent: after a scan on a
-    device, one sorted-table binary search per query on that device
-    (``parallel.lookup.DeviceTable``); after the native host scan, the host
-    table's probe loop (native/modset_native.cpp)."""
+    device, one sorted-table binary search per query on that device, or
+    on the ``mesh`` of several ranks (``parallel.lookup.DeviceTable``);
+    after the native host scan, the host table's probe loop
+    (native/modset_native.cpp).  On a mesh every rank must take the same
+    branch: the ranks that scanned on the device would wait in the
+    table's exchange for the others."""
     ms = ref.ms
+    if mesh is not None:
+        on_device = mesh.sum(int(scanner.used_device))
+        if on_device not in (0, mesh.n):
+            die("%d of %d ranks scanned the queries on the device and the "
+                "others on the host: set MODIMIZER_SCAN alike on every rank",
+                on_device, mesh.n)
     if not scanner.used_device:
         return ms.find_batch(kmers)
-    if (ref.device_table is None
-            or ref.device_table.device != scanner.device):
+    table, group = ref.device_table, None if mesh is None else mesh.group
+    if (table is None or table.device != scanner.device
+            or table.mesh.group is not group):
         from ..parallel.lookup import DeviceTable
         ref.device_table = DeviceTable(
             ms.value[1:ms.max + 1],
             np.arange(1, ms.max + 1, dtype=np.uint32), ms.hasher,
-            device=scanner.device)
+            device=scanner.device if mesh is None else mesh)
     return ref.device_table.find(kmers)
 
 
-def query_process(ref: Reference, filename, out, is_verbose, device=None):
+def query_process(ref: Reference, filename, out, is_verbose, device=None,
+                  mesh=None):
     """queryProcess (modmap.c:188-281): seeding batched on ``device`` (the
-    scanner's) + the table lookup there; the greedy colinear chaining
-    automaton and Q/M emission run in the native runtime
-    (mm_query_emit)."""
+    scanner's) + the table lookup there, or on ``mesh`` (every rank
+    passes all the queries); the greedy colinear chaining automaton and
+    Q/M emission run in the native runtime (``emit``), on rank 0 only."""
     ms = ref.ms
     try:
         with profiling.stage("map.parse"):
@@ -79,8 +100,15 @@ def query_process(ref: Reference, filename, out, is_verbose, device=None):
     with profiling.stage("map.scan"):
         kmers, rid, rpos, _f = scanner.scan_batch(batch)
     with profiling.stage("map.lookup"):
-        sidx = _lookup(ref, scanner, kmers)
+        sidx = _lookup(ref, scanner, kmers, mesh)
+    if mesh is None or mesh.rank == 0:
+        emit(ref, batch, rid, rpos, sidx, out, is_verbose)
 
+
+def emit(ref: Reference, batch, rid, rpos, sidx, out, is_verbose):
+    """The chaining and the Q/M lines (mm_query_emit), written through
+    ``out``'s and stdout's file descriptors."""
+    ms = ref.ms
     n = batch.n
     seed_off = np.searchsorted(rid, np.arange(n + 1)).astype(np.int64)
     spos = np.ascontiguousarray(rpos, np.int64)
@@ -137,13 +165,22 @@ def query_process(ref: Reference, filename, out, is_verbose, device=None):
             spool.close()
 
 
-@cli_guard
 def main(argv=None, device=None):
     """Run modmap commands in order.  device: a torch.device (or its name)
     for the scans and the lookup; None takes the CUDA card and raises
     without one.  ``device="cpu"`` runs the kernels' plain versions;
-    MODIMIZER_SCAN=host asks for the native host scan and lookup."""
-    argv = list(sys.argv[1:] if argv is None else argv)
+    MODIMIZER_SCAN=host asks for the native host scan and lookup.  Under
+    torchrun the ranks look up on their mesh and rank 0 writes (see the
+    module doc)."""
+    torchrun_main(run, sys.argv[1:] if argv is None else argv, device)
+
+
+@cli_guard
+def run(argv, device=None, mesh=None):
+    """main()'s body; on a ``mesh`` the -q lookup runs on it and only rank
+    0 chains and writes files."""
+    argv = list(argv)
+    writer = mesh is None or mesh.rank == 0
     out = OutFile()
     timer = Timer()
     timer.update(sys.stdout)
@@ -175,7 +212,7 @@ def main(argv=None, device=None):
         elif args.match("-v", "--verbose", 1):
             is_verbose = not is_verbose
         elif (m := args.match("-o", "--output", 2)):
-            out.set(m[1])
+            out.set(m[1] if writer else "-")
         elif (m := args.match("-f", "--referenceFasta", 2)):
             if params["k"] <= 0 or params["w"] <= 0:
                 die("k %d, w %d must be > 0", params["k"], params["w"])
@@ -196,11 +233,14 @@ def main(argv=None, device=None):
             import os
             if not os.path.exists(m[1]):
                 die("failed to open query file %s", m[1])
-            query_process(ref, m[1], out, is_verbose, device)
+            query_process(ref, m[1], out, is_verbose, device, mesh)
         elif (m := args.match("-r", "--referenceRead", 2)):
             ref = Reference.read(m[1])
         elif (m := args.match("-w", "--referenceWrite", 2)):
-            ref.write(m[1])
+            if writer:
+                ref.write(m[1])
+            if mesh is not None:
+                mesh.barrier()  # a later -r reads it on every rank
         else:
             die("unkown command %s - run without arguments for usage",
                 args.current)

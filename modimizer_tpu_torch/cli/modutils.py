@@ -23,20 +23,17 @@ of the stream), the JAX CLI's ``build_mesh()`` over every device, and rank
         -m modimizer_tpu_torch.cli.modutils -c 26 16 16 17 -a reads.fa -w X.mod
 """
 
-import contextlib
-import datetime
 import os
 import sys
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..core.modset import Modset
 from ..core.seqhash import Seqhash
 from ..io import seqio
 from ..ops.seqhash import ModimizerScanner
-from ..parallel.mesh import build_mesh
+from ..parallel.mesh import build_mesh, torchrun_main
 from ..parallel.sharded import ShardedModsetBuilder
 from ..utils import profiling
 from ..utils.timers import Timer
@@ -205,48 +202,13 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
     return True
 
 
-TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK")
-
-
-def torchrun_mesh(device=None):
-    """Under torchrun's environment: (the mesh over its ranks, whether this
-    call initialised the process group); else (None, False).  The group is
-    NCCL on the card ``cuda:<LOCAL_RANK>``, or gloo when ``device`` names
-    the CPU."""
-    if not all(v in os.environ for v in TORCHRUN_VARS):
-        return None, False
-    cpu = device is not None and torch.device(device).type == "cpu"
-    owned = not dist.is_initialized()
-    if owned:
-        if not cpu:
-            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-        # a rank that fails leaves the others in a collective: they give up
-        # after the timeout
-        dist.init_process_group("gloo" if cpu else "nccl",
-                                timeout=datetime.timedelta(seconds=600))
-    return build_mesh("cpu" if cpu else None, group=dist.group.WORLD), owned
-
-
 def main(argv=None, device=None):
     """Run modutils commands in order.  device: a torch.device (or its
     name) for the scan; None takes the CUDA card and raises without one.
     ``device="cpu"`` runs the kernels' plain versions; MODIMIZER_SCAN=host
     asks for the native host scan (no card needed).  Under torchrun the
     ranks count on their mesh and rank 0 writes (see the module doc)."""
-    argv = sys.argv[1:] if argv is None else argv
-    mesh, owned = torchrun_mesh(device)
-    if mesh is None:
-        run(argv, device)
-        return
-    try:
-        with contextlib.ExitStack() as stack:
-            if mesh.rank:
-                stack.enter_context(contextlib.redirect_stdout(
-                    stack.enter_context(open(os.devnull, "w"))))
-            run(argv, mesh.device, mesh=mesh)
-    finally:
-        if owned:
-            dist.destroy_process_group()
+    torchrun_main(run, sys.argv[1:] if argv is None else argv, device)
 
 
 @cli_guard

@@ -13,8 +13,14 @@ rank (``any``, ``sum``, ``max``).
 A mesh without a group is one rank with no collective: the exchange is the
 identity and a gather adds a leading axis of one.  A mesh over a group of
 one rank still calls each collective.
+
+The CLIs join torchrun's group through ``torchrun_main``: under torchrun's
+variables the whole command list runs on every rank with the mesh of all
+ranks, and ranks above 0 print nothing.
 """
 
+import contextlib
+import datetime
 import os
 
 import torch
@@ -116,3 +122,45 @@ def build_mesh(device=None, group=None) -> Mesh:
     else:
         device = as_device(device, "build_mesh")
     return Mesh(device, group)
+
+
+TORCHRUN_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK")
+
+
+def torchrun_mesh(device=None):
+    """Under torchrun's environment: (the mesh over its ranks, whether this
+    call initialised the process group); else (None, False).  The group is
+    NCCL on the card ``cuda:<LOCAL_RANK>``, or gloo when ``device`` names
+    the CPU."""
+    if not all(v in os.environ for v in TORCHRUN_VARS):
+        return None, False
+    cpu = device is not None and torch.device(device).type == "cpu"
+    owned = not dist.is_initialized()
+    if owned:
+        if not cpu:
+            require_cuda()      # never gloo on the CPU unless asked
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        # a rank that fails leaves the others in a collective: they give up
+        # after the timeout
+        dist.init_process_group("gloo" if cpu else "nccl",
+                                timeout=datetime.timedelta(seconds=600))
+    return build_mesh("cpu" if cpu else None, group=dist.group.WORLD), owned
+
+
+def torchrun_main(run, argv, device=None):
+    """A CLI's ``run(argv, device)``, or under torchrun ``run(argv,
+    mesh.device, mesh=mesh)`` on every rank with stdout sent to
+    ``os.devnull`` above rank 0; the group is destroyed only if this call
+    initialised it."""
+    mesh, owned = torchrun_mesh(device)
+    if mesh is None:
+        return run(argv, device)
+    try:
+        with contextlib.ExitStack() as stack:
+            if mesh.rank:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return run(argv, mesh.device, mesh=mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()

@@ -910,3 +910,207 @@ def test_modutils_two_ranks_under_torchrun(tmp_path, monkeypatch):
         data = (tmp_path / ("ranks" + ext)).read_bytes()
         assert data == (tmp_path / ("one" + ext)).read_bytes(), ext
         assert data == (tmp_path / ("jax" + ext)).read_bytes(), ext
+
+
+# ------------------------------------------------ modmap under torchrun
+
+MODMAP_LISTS = ("q", "vo", "wr")
+TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def modmap_lists(data, stem):
+    """modmap's three command lists on tests/test_torch_modmap.py's data:
+    ``-q``; ``-o out.txt -v -q``; ``-w`` then ``-r`` of ``stem``, then
+    ``-q``."""
+    from tests.test_torch_modmap import PARAMS
+    ref, query = str(data / "ref.fa"), str(data / "query.fa")
+    return {"q": PARAMS + ["-f", ref, "-q", query],
+            "vo": PARAMS + ["-o", "out.txt", "-f", ref, "-v", "-q", query],
+            "wr": PARAMS + ["-f", ref, "-w", str(stem), "-r", str(stem),
+                            "-q", query]}
+
+
+def spawn_modmap_ranks(d, n, lists, env=None, timeout=300):
+    """``python -m tests.torch_dist_ranks modmap`` as n ranks with
+    torchrun's variables set (``env``: rank -> more variables): their exit
+    codes and logs.  A rank still running at ``timeout`` is killed and
+    the test fails."""
+    import json
+    import socket
+    (d / "lists.json").write_text(json.dumps(lists))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    try:
+        for r in range(n):
+            e = dict(os.environ, PYTHONPATH=str(REPO), WORLD_SIZE=str(n),
+                     RANK=str(r), LOCAL_RANK=str(r),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            e.pop("MODIMIZER_SCAN", None)
+            e.update((env or {}).get(r, {}))
+            with open(d / ("log%d" % r), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "tests.torch_dist_ranks",
+                     "modmap", str(d), str(d / "lists.json")],
+                    cwd=str(REPO), env=e, stdout=log,
+                    stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rcs, [(d / ("log%d" % r)).read_text() for r in range(n)]
+
+
+def text_or_bytes(path):
+    """A written file: -o text without its timing lines, else bytes."""
+    from tests.util import strip_timing
+    if path.suffix == ".txt":
+        return strip_timing(path.read_text())
+    return path.read_bytes()
+
+
+@pytest.fixture(scope="module")
+def modmap_data(tmp_path_factory):
+    from tests.test_torch_modmap import write_data
+    return write_data(tmp_path_factory.mktemp("modmap_data"))
+
+
+@pytest.fixture(scope="module")
+def modmap_single(tmp_path_factory, modmap_data):
+    """Each command list in one process: the port (``device="cpu"``), the
+    JAX CLI's device path (``MODIMIZER_SCAN=device``: its DeviceTable over
+    the conftest's 8 devices) and its host path, each in a directory of
+    its own.  path -> list -> (stdout without timing lines, the files
+    written: name -> bytes); and the tables' (n, keys) a path made."""
+    from modimizer_tpu.cli import modmap as jax_cli
+    from modimizer_tpu.parallel import lookup as jax_lookup
+    from modimizer_tpu_torch.cli import modmap as port_cli
+    from modimizer_tpu_torch.parallel import lookup as port_lookup
+    from tests.test_torch_modmap import run as run_cli
+    root = tmp_path_factory.mktemp("modmap_single")
+    tables = {}
+    runs = {"port": (port_cli.main, None, port_lookup.DeviceTable,
+                     dict(device="cpu")),
+            "jax_device": (jax_cli.main, "device", jax_lookup.DeviceTable,
+                           {}),
+            "jax_host": (jax_cli.main, "host", jax_lookup.DeviceTable, {})}
+    got = {}
+    with pytest.MonkeyPatch.context() as mp:
+        for v in TORCHRUN_ENV:
+            mp.delenv(v, raising=False)
+        for path, (main, scan, table_cls, kw) in runs.items():
+            d = root / path
+            d.mkdir()
+            tables[path] = []
+            real = table_cls.find
+
+            def find(self, q, real=real, made=tables[path]):
+                made.append((self.n, int(self.keys.shape[0])))
+                return real(self, q)
+            mp.setattr(table_cls, "find", find)
+            if scan:
+                mp.setenv("MODIMIZER_SCAN", scan)
+            else:
+                mp.delenv("MODIMIZER_SCAN", raising=False)
+            got[path] = {}
+            for name, argv in modmap_lists(modmap_data, d / "idx").items():
+                out = run_cli(main, argv, cwd=d, **kw)
+                files = {p.name: text_or_bytes(p)
+                         for p in sorted(d.iterdir())}
+                for p in d.iterdir():
+                    p.unlink()
+                got[path][name] = (out, files)
+            mp.setattr(table_cls, "find", real)
+    return got, tables
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["n2", "n4"])
+def modmap_ranks(request, tmp_path_factory, modmap_data):
+    """modmap's three command lists in turn on n gloo ranks with
+    torchrun's variables, spawned once: (n, the run's directory)."""
+    n = request.param
+    d = tmp_path_factory.mktemp("modmap_n%d" % n)
+    (d / "shared").mkdir()
+    rcs, logs = spawn_modmap_ranks(
+        d, n, modmap_lists(modmap_data, d / "shared" / "idx"))
+    assert rcs == [0] * n, [log[-3000:] for log in logs]
+    return n, d
+
+
+@pytest.mark.parametrize("name", MODMAP_LISTS)
+def test_modmap_ranks_equal_one_process_and_jax(modmap_ranks, modmap_single,
+                                                name):
+    """Under n gloo ranks rank 0's stdout (timing lines dropped) and every
+    file it writes equal the one-process port's, the JAX CLI's mesh
+    device path's and its host path's.  Ranks above 0 print nothing,
+    write no file and do not chain; every rank's table is a mesh of n
+    ranks holding its own keys, looked up once with route_rows in lookup
+    mode, on the same queries on every rank."""
+    import json
+    from tests.util import strip_timing
+    n, d = modmap_ranks
+    single, tables = modmap_single
+    out = strip_timing((d / ("stdout.%s.0" % name)).read_text())
+    files = {"q": {}, "vo": {"out.txt": (d / "rank0" / "out.txt")},
+             "wr": {"idx" + ext: d / "shared" / ("idx" + ext)
+                    for ext in (".mod", ".ref")}}[name]
+    files = {k: text_or_bytes(p) for k, p in files.items()}
+    assert "\nQ\tq0\t2000\t" in out + files.get("out.txt", "")
+    for path, by_list in single.items():
+        want_out, want_files = by_list[name]
+        assert out == want_out, path
+        assert files == want_files, path
+    assert (n, tables["jax_device"][0][0]) == (n, 8)
+    assert not tables["jax_host"]
+    recs = [json.loads((d / ("rec.%s.%d.json" % (name, r))).read_text())
+            for r in range(n)]
+    for r, rec in enumerate(recs):
+        assert [t[:2] for t in rec["tables"]] == [[n, r]], rec
+        assert rec["tables"][0][2] > 0
+        assert len(rec["finds"]) == 1 and rec["finds"][0][0] > 0
+        assert rec["routes"] == [["lookup", n]]
+        assert rec["emits"] == (r == 0)
+        assert rec["writes"] == (r == 0 and name == "wr")
+    assert len({rec["finds"][0][1] for rec in recs}) == 1
+    assert sum(rec["tables"][0][2] for rec in recs) == tables["port"][0][1]
+    for r in range(1, n):
+        assert (d / ("stdout.%s.%d" % (name, r))).read_text() == ""
+        assert not any((d / ("rank%d" % r)).iterdir())
+
+
+def test_modmap_ranks_on_different_lookup_branches_exit(tmp_path,
+                                                        modmap_data):
+    """One rank on the native host scan, the other on the device scan:
+    every rank exits non-zero with the die message at the lookup, long
+    before the group's timeout, instead of waiting in the exchange."""
+    lists = {"q": modmap_lists(modmap_data, tmp_path / "idx")["q"]}
+    rcs, logs = spawn_modmap_ranks(tmp_path, 2, lists,
+                                   env={1: {"MODIMIZER_SCAN": "host"}},
+                                   timeout=120)
+    assert all(rc != 0 for rc in rcs), logs
+    for log in logs:
+        assert ("FATAL ERROR: 1 of 2 ranks scanned the queries on the "
+                "device and the others on the host") in log, log[-3000:]
+
+
+def test_torchrun_mesh_needs_the_card_unless_cpu(monkeypatch):
+    """torchrun_mesh: no torchrun variables, no mesh; with them and no
+    CUDA, a RuntimeError before any group is made, never gloo on the CPU
+    unless ``device`` names it."""
+    import torch.distributed as dist
+    from modimizer_tpu_torch.parallel.mesh import torchrun_mesh
+    for v in TORCHRUN_ENV:
+        monkeypatch.delenv(v, raising=False)
+    assert torchrun_mesh() == (None, False)
+    assert torchrun_mesh("cpu") == (None, False)
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torchrun_mesh()
+    assert not dist.is_initialized()

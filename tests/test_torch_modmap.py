@@ -43,10 +43,14 @@ def run(main, argv, cwd=None, **kw):
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    """tests/test_modmap_parity.py's data: three reference sequences, one
-    holding a copy of a segment of another (so copy-2 mods exist); 30
-    queries cut from them, some reverse-complemented, and 5 random ones."""
-    d = tmp_path_factory.mktemp("modmap_torch")
+    return write_data(tmp_path_factory.mktemp("modmap_torch"))
+
+
+def write_data(d):
+    """tests/test_modmap_parity.py's data in ``d``: three reference
+    sequences, one holding a copy of a segment of another (so copy-2 mods
+    exist), as ref.fa; 30 queries cut from them, some reverse-complemented,
+    and 5 random ones, as query.fa."""
     rng = np.random.default_rng(33)
     bases = np.array(list("ACGT"))
     chr1 = "".join(bases[rng.integers(0, 4, size=20000)])

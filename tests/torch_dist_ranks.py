@@ -3,6 +3,7 @@ gloo group on the CPU, one process a rank.
 
     python -m tests.torch_dist_ranks RANK WORLD INIT_FILE OUT_DIR
     python -m tests.torch_dist_ranks modutils OUT_DIR ARGS...
+    python -m tests.torch_dist_ranks modmap OUT_DIR LISTS_JSON
 
 The first joins a group of WORLD ranks (``file://INIT_FILE``), runs every
 case of ``CASES`` on ``build_mesh("cpu", group)`` and writes each case's
@@ -12,7 +13,8 @@ its own process.  The inputs are made from numpy seeds by the functions
 below, which the test calls too; OUT_DIR/jax.snap (a JAX snapshot of the
 first part of ``snap_stream``) is written by the test before the ranks
 start.  The second runs ``modutils ARGS`` as one rank under torchrun's
-variables (``modutils_rank``).
+variables (``modutils_rank``); the third runs modmap's command lists in turn
+as one rank of a group it joins from those variables (``modmap_rank``).
 """
 
 import os
@@ -403,13 +405,88 @@ def modutils_rank(out, argv):
         json.dump(made, f)
 
 
+# ------------------------------------------ modmap under torchrun
+
+def modmap_rank(out, lists_path):
+    """One rank of ``modmap`` under torchrun's variables on the CPU.  The
+    rank joins the gloo group itself, so each main() finds it made and
+    leaves it; then it runs every command list of LISTS_PATH (a JSON
+    object: name -> argv) in turn, in the working directory OUT/rank<r>.
+    For each list the rank's stdout goes to OUT/stdout.<name>.<rank>, and
+    to OUT/rec.<name>.<rank>.json: each DeviceTable made (n, rank, its
+    keys), each find (the queries' count and a hash of them), each
+    route_rows call (mode, n), and the calls of modmap.emit (the chaining)
+    and Reference.write."""
+    import contextlib
+    import datetime
+    import hashlib
+    import json
+    import torch.distributed as dist
+    from modimizer_tpu_torch.cli import modmap
+    from modimizer_tpu_torch.core.reference import Reference
+    from modimizer_tpu_torch.parallel import lookup
+    rec = {}
+    route_rows, emit, write = lookup.route_rows, modmap.emit, Reference.write
+
+    class Table(lookup.DeviceTable):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            rec["tables"].append([self.n, self.mesh.rank,
+                                  int(self.keys.numel())])
+
+        def find(self, q):
+            q = np.ascontiguousarray(q, np.uint64)
+            rec["finds"].append([len(q), hashlib.sha1(q).hexdigest()])
+            return super().find(q)
+
+    def routed(q, n, cap, mode, **kw):
+        rec["routes"].append([mode, n])
+        return route_rows(q, n, cap, mode, **kw)
+
+    def emitted(*args):
+        rec["emits"] += 1
+        return emit(*args)
+
+    def written(self, root):
+        rec["writes"] += 1
+        return write(self, root)
+
+    lookup.DeviceTable, lookup.route_rows = Table, routed
+    modmap.emit, Reference.write = emitted, written
+    with open(lists_path) as f:
+        lists = json.load(f)
+    rank = int(os.environ["RANK"])
+    cwd = os.path.join(out, "rank%d" % rank)
+    os.makedirs(cwd, exist_ok=True)
+    os.chdir(cwd)
+    dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=300))
+    try:
+        for name, argv in lists.items():
+            rec.update(tables=[], finds=[], routes=[], emits=0, writes=0)
+            with open(os.path.join(out, "stdout.%s.%d" % (name, rank)),
+                      "w") as f, contextlib.redirect_stdout(f):
+                modmap.main(argv, device="cpu")
+            assert dist.is_initialized()
+            with open(os.path.join(out, "rec.%s.%d.json" % (name, rank)),
+                      "w") as f:
+                json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv):
     if argv[0] == "modutils":
         modutils_rank(argv[1], argv[2:])
-        assert "jax" not in sys.modules
-        return
-    rank, world, init_file, out = (int(argv[0]), int(argv[1]), argv[2],
-                                   argv[3])
+    elif argv[0] == "modmap":
+        modmap_rank(argv[1], argv[2])
+    else:
+        run_cases(int(argv[0]), int(argv[1]), argv[2], argv[3])
+    assert "jax" not in sys.modules and "modimizer_tpu" not in sys.modules
+
+
+def run_cases(rank, world, init_file, out):
+    """Every case of ``CASES`` as rank ``rank`` of a gloo group of
+    ``world`` ranks joined through ``file://init_file``."""
     import datetime
     import torch.distributed as dist
     from modimizer_tpu_torch.parallel.mesh import build_mesh
@@ -431,7 +508,6 @@ def main(argv):
                 np.savez(f, **got)
     finally:
         dist.destroy_process_group()
-    assert "jax" not in sys.modules and "modimizer_tpu" not in sys.modules
 
 
 if __name__ == "__main__":
