@@ -111,6 +111,21 @@ def environ(**values):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def stage_seconds():
+    """Records the jobs run inside (``MODIMIZER_STAGES=1``) and fills the
+    dict it yields with {span: total seconds} over them."""
+    from modimizer_tpu_torch.utils import profiling
+    got = {}
+    n0 = len(profiling.jobs())
+    try:
+        with environ(MODIMIZER_STAGES="1"):
+            yield got
+    finally:
+        by_name, _counters = profiling.totals(profiling.jobs()[n0:])
+        got.update((k, v[1]) for k, v in by_name.items())
+
+
 def nvidia_smi_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1154,7 +1169,9 @@ def device_busy(prof):
     device-side events count: the host op rows that launched them carry the
     same time again."""
     from torch.autograd import DeviceType
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the trace mirrors the program's stage:<span> marks onto the card
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not e.name.startswith("stage:")]
     if not ev:
         fail("profile: torch.profiler recorded no device time")
     spans = sorted((e.time_range.start, e.time_range.end) for e in ev)
@@ -1187,38 +1204,29 @@ def phase_profile(small, work):
     each path under torch.profiler: the card's busy time and its idle share
     of the command's wall time, with the top device rows."""
     import torch
-    from modimizer_tpu_torch.utils import profiling
     fa = os.path.join(work, "reads200.fa")
     if not os.path.exists(fa):
         write_reads(fa, 2_000 if small else 200_000, 1000, 42)
     argv = ["-c", "26", "16", "16", "17", "-a", fa]
-    enabled = profiling._enabled
-    profiling._enabled = True
-    try:
-        with main_sizes(small):
-            for path in ("builder", "scanner"):
-                run_port(argv, {}, path)                # warm-up
-            for path in ("builder", "scanner", "scanner", "builder"):
-                profiling._stages.clear()
+    with main_sizes(small):
+        for path in ("builder", "scanner"):
+            run_port(argv, {}, path)                # warm-up
+        for path in ("builder", "scanner", "scanner", "builder"):
+            with stage_seconds() as stages:
                 _, wall, _, _ = run_port(argv, {}, path)
-                say({"phase": "profile", "path": path, "wall_s": wall,
-                     "stages_s": {k: v[0] for k, v in
-                                  sorted(profiling._stages.items())},
-                     "card": nvidia_smi_line()})
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            for path in ("builder", "scanner"):
-                with torch.profiler.profile(activities=acts) as prof:
-                    _, wall, _, _ = run_port(argv, {}, path)
-                busy_ms, top, ours = device_busy(prof)
-                say({"phase": "profile", "path": path,
-                     "profiled_wall_s": wall, "device_busy_ms": busy_ms,
-                     "idle_share": 1 - busy_ms / 1e3 / wall,
-                     "kernel_device_ms": ours, "top_device_ms": top,
-                     "card": nvidia_smi_line()})
-    finally:
-        profiling._enabled = enabled
-        profiling._stages.clear()
+            say({"phase": "profile", "path": path, "wall_s": wall,
+                 "stages_s": stages, "card": nvidia_smi_line()})
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for path in ("builder", "scanner"):
+            with torch.profiler.profile(activities=acts) as prof:
+                _, wall, _, _ = run_port(argv, {}, path)
+            busy_ms, top, ours = device_busy(prof)
+            say({"phase": "profile", "path": path,
+                 "profiled_wall_s": wall, "device_busy_ms": busy_ms,
+                 "idle_share": 1 - busy_ms / 1e3 / wall,
+                 "kernel_device_ms": ours, "top_device_ms": top,
+                 "card": nvidia_smi_line()})
 
 
 _ACGT = b"ACGT"
@@ -1278,27 +1286,20 @@ def run_app(tool, argv, work, tag, device=None, env=None):
     stage timers' seconds)."""
     import importlib
     import torch
-    from modimizer_tpu_torch.utils import profiling
     main = importlib.import_module("modimizer_tpu_torch.cli." + tool).main
     out_p = os.path.join(work, tag + ".out")
     err_p = os.path.join(work, tag + ".err")
     kw = {} if device is None else {"device": device}
-    enabled, profiling._enabled = profiling._enabled, True
-    profiling._stages.clear()
-    try:
-        with environ(**(env or {})), recorded_scanners() as made, \
-                open(out_p, "w") as out, open(err_p, "w") as err, \
-                contextlib.redirect_stdout(out), \
-                contextlib.redirect_stderr(err):
-            t0 = time.perf_counter()
-            main([str(a) for a in argv], **kw)
-            if device is not None:
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        stages = {k: v[0] for k, v in sorted(profiling._stages.items())}
-    finally:
-        profiling._enabled = enabled
-        profiling._stages.clear()
+    with stage_seconds() as stages, environ(**(env or {})), \
+            recorded_scanners() as made, \
+            open(out_p, "w") as out, open(err_p, "w") as err, \
+            contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        t0 = time.perf_counter()
+        main([str(a) for a in argv], **kw)
+        if device is not None:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     texts = []
     for p in (out_p, err_p):
         with open(p) as f:
@@ -1889,17 +1890,11 @@ def phase_sharded(small, work, launches, report):
             fail("sharded_merge: a kernel was never launched: %s" % counts)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
-        enabled, profiling._enabled = profiling._enabled, True
-        profiling._stages.clear()
-        try:
+        with stage_seconds() as merge_stages, \
+                profiling.job("sharded_merge"):
             t1 = time.perf_counter()
             again = sharded_merge(ms_a, ms_b, mesh)
             merge_s.append(time.perf_counter() - t1)
-            merge_stages = {k: v[0] for k, v in
-                            sorted(profiling._stages.items())}
-        finally:
-            profiling._enabled = enabled
-            profiling._stages.clear()
         if not all(np.array_equal(a, b) for a, b in zip(again,
                                                         (mk, md, mi))):
             fail("sharded_merge: two calls differ")

@@ -11,19 +11,25 @@ import sys
 
 import functools
 
+from ..utils import profiling
 from ..utils.timers import Timer
 from ..utils.errors import ModsetOverflowError, die, warn  # noqa: F401
 
 
 def cli_guard(main_fn):
-    """Convert library ModsetOverflowError to the reference's die()
-    (exact message + exit -1, utils.c:21-30) at the CLI boundary."""
+    """Run the CLI as one job of ``utils.profiling`` (its root span is
+    named after the CLI's module) and convert library ModsetOverflowError
+    to the reference's die() (exact message + exit -1, utils.c:21-30) at
+    the CLI boundary."""
+    name = main_fn.__module__.rsplit(".", 1)[-1]
+
     @functools.wraps(main_fn)
     def wrapped(*args, **kwargs):
-        try:
-            return main_fn(*args, **kwargs)
-        except ModsetOverflowError as e:
-            die("%s", str(e))
+        with profiling.job(name):
+            try:
+                return main_fn(*args, **kwargs)
+            except ModsetOverflowError as e:
+                die("%s", str(e))
     return wrapped
 
 

@@ -49,13 +49,13 @@ def _find_overlaps(rs, name, out_f, *front, device=None):
     native walk ``name``.  Stage timers (MODIMIZER_STAGES=1): asm.phase1,
     asm.phase2, asm.walk."""
     if _use_device_overlaps(rs):
-        with profiling.stage("asm.phase1"):
+        with profiling.span("asm.phase1"):
             cy, ch, co = rs.device_overlap_candidates(
                 device=rs.device if rs.device is not None else device)
-        with profiling.stage("asm.phase2"):
+        with profiling.span("asm.phase2"):
             rs.native_call(name + "_pre", out_f, *front, cy, ch, co)
     else:
-        with profiling.stage("asm.walk"):
+        with profiling.span("asm.walk"):
             rs.native_call(name, out_f, *front)
 
 

@@ -71,15 +71,19 @@ def _lookup(ref: Reference, scanner, kmers, mesh=None):
                 "others on the host: set MODIMIZER_SCAN alike on every rank",
                 on_device, mesh.n)
     if not scanner.used_device:
-        return ms.find_batch(kmers)
+        from ..parallel.lookup import count_lookup
+        sidx = ms.find_batch(kmers)
+        count_lookup(sidx)
+        return sidx
     table, group = ref.device_table, None if mesh is None else mesh.group
     if (table is None or table.device != scanner.device
             or table.mesh.group is not group):
         from ..parallel.lookup import DeviceTable
-        ref.device_table = DeviceTable(
-            ms.value[1:ms.max + 1],
-            np.arange(1, ms.max + 1, dtype=np.uint32), ms.hasher,
-            device=scanner.device if mesh is None else mesh)
+        with profiling.span("map.table"):
+            ref.device_table = DeviceTable(
+                ms.value[1:ms.max + 1],
+                np.arange(1, ms.max + 1, dtype=np.uint32), ms.hasher,
+                device=scanner.device if mesh is None else mesh)
     return ref.device_table.find(kmers)
 
 
@@ -91,18 +95,19 @@ def query_process(ref: Reference, filename, out, is_verbose, device=None,
     Q/M emission run in the native runtime (``emit``), on rank 0 only."""
     ms = ref.ms
     try:
-        with profiling.stage("map.parse"):
+        with profiling.span("map.parse"):
             batch, _t = seqio.read_seq_file(filename, seqio.dna2index_n0(),
                                             is_qual=False, want_ids=True)
     except (IOError, ValueError, FileNotFoundError):
         die("failed to read query sequence file %s", filename)
     scanner = ModimizerScanner(ms.hasher, want_isf=False, device=device)
-    with profiling.stage("map.scan"):
+    with profiling.span("map.scan"):
         kmers, rid, rpos, _f = scanner.scan_batch(batch)
-    with profiling.stage("map.lookup"):
+    with profiling.span("map.lookup"):
         sidx = _lookup(ref, scanner, kmers, mesh)
     if mesh is None or mesh.rank == 0:
-        emit(ref, batch, rid, rpos, sidx, out, is_verbose)
+        with profiling.span("map.emit"):
+            emit(ref, batch, rid, rpos, sidx, out, is_verbose)
 
 
 def emit(ref: Reference, batch, rid, rpos, sidx, out, is_verbose):
@@ -149,7 +154,7 @@ def emit(ref: Reference, batch, rid, rpos, sidx, out, is_verbose):
     else:
         fd_so, spool_so = fd_of(_sys.stdout)
     from ..native import lib as native_lib
-    with profiling.stage("map.chain"):
+    with profiling.span("map.chain"):
         native_lib().mm_query_emit(
             seed_off, sidx, spos, np.ascontiguousarray(ms.info, np.uint8),
             np.ascontiguousarray(ref.rev, np.uint32),
@@ -219,8 +224,9 @@ def run(argv, device=None, mesh=None):
             hasher = Seqhash.create(params["k"], params["w"], params["s"])
             out.write("  modmap initialised with k = %d, w = %d, random seed = %d\n"
                       % (params["k"], params["w"], params["s"]))
-            ms = Modset(hasher, params["B"], 0)
-            ref = Reference(ms, 1 << 26)
+            with profiling.span("ref.index"):
+                ms = Modset(hasher, params["B"], 0)
+                ref = Reference(ms, 1 << 26)
             try:
                 ref.fasta_read(m[1], out, is_add=True, device=device)
             except IOError:

@@ -167,7 +167,7 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
                       " new max %d\n" % (n_seq, tot_len, n_hash, ms.max))
             return True
     try:
-        with profiling.stage("read"):
+        with profiling.span("read"):
             batch, _t = seqio.read_seq_file(filename, seqio.dna2index_n0(),
                                             is_qual=False, want_ids=False)
     except (IOError, ValueError, FileNotFoundError):
@@ -191,7 +191,7 @@ def add_sequence_file(ms: Modset, scanner: ModimizerScanner, filename, out,
         builder.feed_stream(codes, offsets)
         uniq, counts = builder.finalize()
         n_hash = builder.total_emitted
-        with profiling.stage("count.replay"):
+        with profiling.span("count.replay"):
             ms.add_batch(uniq, counts)
     else:
         n_hash = scanner.scan_kmers(codes, offsets, consumer=ms.add_batch)

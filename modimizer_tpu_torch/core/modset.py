@@ -20,7 +20,7 @@ import numpy as np
 from .seqhash import Seqhash
 from ..native import lib as native_lib
 from ..utils.errors import ModsetOverflowError
-from ..utils import alloc
+from ..utils import alloc, profiling
 from ..io.fzio import GzWriter, read_maybe_gz
 
 MAGIC = b"MSHSTv2\x00"
@@ -186,16 +186,17 @@ class Modset:
     def set_copy_thresholds(self, copy1min: int, copy2min: int,
                             copyMmin: int) -> None:
         """modutils -s (modutils.c:205-213)."""
-        d = self.depth[1:self.max + 1]
-        info = self.info[1:self.max + 1]
-        c0 = d < copy1min
-        c1 = ~c0 & (d < copy2min)
-        c2 = ~c0 & ~c1 & (d < copyMmin)
-        cM = ~c0 & ~c1 & ~c2
-        info[c0] &= 0xFC
-        info[c1] = (info[c1] & 0xFC) | 1
-        info[c2] = (info[c2] & 0xFC) | 2
-        info[cM] |= 3
+        with profiling.span("mod.copy"):
+            d = self.depth[1:self.max + 1]
+            info = self.info[1:self.max + 1]
+            c0 = d < copy1min
+            c1 = ~c0 & (d < copy2min)
+            c2 = ~c0 & ~c1 & (d < copyMmin)
+            cM = ~c0 & ~c1 & ~c2
+            info[c0] &= 0xFC
+            info[c1] = (info[c1] & 0xFC) | 1
+            info[c2] = (info[c2] & 0xFC) | 2
+            info[cM] |= 3
 
     def set_copyM_threshold(self, copyMmin: int) -> None:
         """modutils -sM (modutils.c:215-218)."""
@@ -215,6 +216,10 @@ class Modset:
 
     def summary(self, f) -> None:
         """modsetSummary, exact text (modset.c:130-153)."""
+        with profiling.span("mod.summary"):
+            self._summary(f)
+
+    def _summary(self, f):
         f.write(self.hasher.report())
         f.write("MS table bits %d size %d number of entries %d"
                 % (self.table_bits, self.table_size, self.max))

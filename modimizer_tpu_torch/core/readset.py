@@ -108,15 +108,15 @@ class Readset:
         reference command)."""
         from ..io import seqio
         ms = self.ms
-        with profiling.stage("rs.parse"):
+        with profiling.span("rs.parse"):
             batch, _t = seqio.read_seq_file(filename, seqio.dna2index_n0(),
                                             is_qual=False, want_ids=False)
         offsets = np.ascontiguousarray(batch.offsets, np.int64)
         scanner = ModimizerScanner(ms.hasher, device=device)
-        with profiling.stage("rs.scan"):
+        with profiling.span("rs.scan"):
             kmers, gpos, isF = scanner.scan_stream(batch.codes, offsets)
         self.device = scanner.device if scanner.used_device else None
-        with profiling.stage("rs.lookup"):
+        with profiling.span("rs.lookup"):
             sidx = ms.find_batch(kmers)
 
         n = batch.n

@@ -47,7 +47,7 @@ class Reference:
         """referenceFastaRead (modmap.c:93-134), batched on ``device`` (the
         scanner's: None takes the CUDA card unless MODIMIZER_SCAN=host)."""
         try:
-            with profiling.stage("ref.parse"):
+            with profiling.span("ref.parse"):
                 batch, _t = seqio.read_seq_file(
                     filename, seqio.dna2index_n0(), is_qual=False,
                     want_ids=True)
@@ -62,42 +62,46 @@ class Reference:
 
         scanner = ModimizerScanner(self.ms.hasher, want_isf=False,
                                    device=device)
-        with profiling.stage("ref.scan"):
+        with profiling.span("ref.scan"):
             kmers, rid, rpos, _isF = scanner.scan_batch(batch)
-        if is_add:
-            # modmap inserts via modsetIndexFind only — ms->depth stays zero
-            # (occurrence counts live in ref->depth; modmap.c:109-117)
-            idx = self.ms.add_batch(kmers, np.zeros(len(kmers), np.uint32),
-                                    return_indices=True)
-        else:
-            idx = self.ms.find_batch(kmers)
-            keep = idx != 0
-            idx, rid, rpos = idx[keep], rid[keep], rpos[keep]
-        if len(idx) + 1 >= self.size:
-            raise RuntimeError("reference size overflow")
-        self.index = idx.astype(np.uint32)
-        self.offset = rpos.astype(np.uint32)
-        self.id = rid.astype(np.uint32)
-        self.max = len(idx)
-        self.depth = np.bincount(self.index,
-                                 minlength=self.ms.max + 1).astype(np.uint32)
+        with profiling.span("ref.index"):
+            if is_add:
+                # modmap inserts via modsetIndexFind only — ms->depth stays
+                # zero (occurrence counts live in ref->depth;
+                # modmap.c:109-117)
+                idx = self.ms.add_batch(kmers,
+                                        np.zeros(len(kmers), np.uint32),
+                                        return_indices=True)
+            else:
+                idx = self.ms.find_batch(kmers)
+                keep = idx != 0
+                idx, rid, rpos = idx[keep], rid[keep], rpos[keep]
+            if len(idx) + 1 >= self.size:
+                raise RuntimeError("reference size overflow")
+            self.index = idx.astype(np.uint32)
+            self.offset = rpos.astype(np.uint32)
+            self.id = rid.astype(np.uint32)
+            self.max = len(idx)
+            self.depth = np.bincount(
+                self.index, minlength=self.ms.max + 1).astype(np.uint32)
 
-        out.write("  %d hashes from %d reference sequences, total length %d\n"
-                  % (self.max, self.dict.max, tot_len))
-        # copy numbers from reference occurrence counts (modmap.c:125-130)
-        d = self.depth[1:self.ms.max + 1]
-        info = self.ms.info[1:self.ms.max + 1]
-        c1 = d == 1
-        c2 = d == 2
-        cM = ~c1 & ~c2
-        info[c1] = (info[c1] & 0xFC) | 1
-        info[c2] = (info[c2] & 0xFC) | 2
-        info[cM] |= 3
-        out.write("  %d copy 1, %d copy 2, %d multiple\n"
-                  % (c1.sum(), c2.sum(), cM.sum()))
-        if is_add:
-            self.ms.pack()
-        self.pack()
+            out.write("  %d hashes from %d reference sequences, total "
+                      "length %d\n" % (self.max, self.dict.max, tot_len))
+            # copy numbers from reference occurrence counts
+            # (modmap.c:125-130)
+            d = self.depth[1:self.ms.max + 1]
+            info = self.ms.info[1:self.ms.max + 1]
+            c1 = d == 1
+            c2 = d == 2
+            cM = ~c1 & ~c2
+            info[c1] = (info[c1] & 0xFC) | 1
+            info[c2] = (info[c2] & 0xFC) | 2
+            info[cM] |= 3
+            out.write("  %d copy 1, %d copy 2, %d multiple\n"
+                      % (c1.sum(), c2.sum(), cM.sum()))
+            if is_add:
+                self.ms.pack()
+            self.pack()
 
     def pack(self):
         """referencePack (modmap.c:74-91): CSR inverse via stable sort."""

@@ -24,6 +24,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils import profiling
+
 
 # ------------------------------------------------------------------
 # conversion tables (semantics of seqio.c:610-718)
@@ -518,8 +520,15 @@ def read_seq_file(filename, convert=None, is_qual=False, want_ids=True):
 
     ``convert=None`` mirrors the reference defaults: FASTA gets
     dna2textAmbigConv (whitespace removal), FASTQ/binary stay raw text
-    (seqio.c:49,76).  Returns (batch, file_type).
+    (seqio.c:49,76).  Returns (batch, file_type); the job's counter
+    ``parse.bases`` gains the batch's bases.
     """
+    batch, ftype = _read_seq_file(filename, convert, is_qual, want_ids)
+    profiling.count("parse.bases", len(batch.codes))
+    return batch, ftype
+
+
+def _read_seq_file(filename, convert, is_qual, want_ids):
     from .fzio import gz_decompress_all
     if filename == "-":
         import sys

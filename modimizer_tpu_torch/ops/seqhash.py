@@ -146,11 +146,12 @@ class ModimizerScanner:
         kmers, gpos, isF = self.scan_stream(batch.codes, offsets)
         # gpos is ascending (stream order): one native walk beats
         # searchsorted + two np.repeat temporaries
-        gpos = np.ascontiguousarray(gpos, np.int64)
-        rid = np.empty(len(gpos), np.int64)
-        rpos = np.empty(len(gpos), np.int64)
-        native_lib().sh_rid_rpos(gpos, len(gpos), offsets,
-                                 len(offsets) - 1, rid, rpos)
+        with profiling.span("scan.rid_rpos"):
+            gpos = np.ascontiguousarray(gpos, np.int64)
+            rid = np.empty(len(gpos), np.int64)
+            rpos = np.empty(len(gpos), np.int64)
+            native_lib().sh_rid_rpos(gpos, len(gpos), offsets,
+                                     len(offsets) - 1, rid, rpos)
         return kmers, rid, rpos, isF
 
     # ---- host <-> device ----
@@ -202,7 +203,7 @@ class ModimizerScanner:
     def _finish_kmers(self, fut, sw, vb, rescan):
         """Wait for a chunk and walk the overflow tiers; returns its kmers
         (u64, stream order)."""
-        with profiling.stage("scan.download"):
+        with profiling.span("scan.download"):
             dk, tot = self._wait(fut)
             tot = int(tot)
             if tot < 0:      # block or cap overflow: retry wide on device
@@ -240,7 +241,7 @@ class ModimizerScanner:
         self._require_device()
         C = self.chunk
         n_chunks = max(1, -(-n // C))
-        with profiling.stage("scan.validity"):
+        with profiling.span("scan.validity"):
             vwords = np.empty(n_chunks * C // 64, np.uint64)
             native_lib().pk_valid_words(offsets, len(offsets) - 1, n, k,
                                         vwords, len(vwords))
@@ -252,18 +253,17 @@ class ModimizerScanner:
                 lambda: self._rescan_rows(s, min(C, n - s), codes,
                                           offsets)[0]))
 
-        with profiling.trace_region():
-            pending = []
-            for s in range(0, n, C):
-                with profiling.stage("scan.pack"):
-                    sw = self._put_sw(codes[s:s + C + k - 1])
-                    vb = self._put_words(vwords[s // 64:s // 64 + C // 64])
-                with profiling.stage("scan.dispatch"):
-                    pending.append((s, sw, vb, self._launch_kmers(sw, vb)))
-                if len(pending) > self.max_inflight:
-                    drain(pending.pop(0))
-            for entry in pending:
-                drain(entry)
+        pending = []
+        for s in range(0, n, C):
+            with profiling.span("scan.pack"):
+                sw = self._put_sw(codes[s:s + C + k - 1])
+                vb = self._put_words(vwords[s // 64:s // 64 + C // 64])
+            with profiling.span("scan.dispatch"):
+                pending.append((s, sw, vb, self._launch_kmers(sw, vb)))
+            if len(pending) > self.max_inflight:
+                drain(pending.pop(0))
+        for entry in pending:
+            drain(entry)
         return sink.result()
 
     def scan_kmers_batches(self, batches, consumer=None):
@@ -300,10 +300,10 @@ class ModimizerScanner:
 
         def dispatch(sa):
             seg = buf[sa - base:sa - base + C + halo]
-            with profiling.stage("scan.pack"):
+            with profiling.span("scan.pack"):
                 sw = self._put_sw(seg)
                 vb = self._put_words(win_valid(sa, len(seg)))
-            with profiling.stage("scan.dispatch"):
+            with profiling.span("scan.dispatch"):
                 return sw, vb, self._launch_kmers(sw, vb)
 
         def rescan_window(sa):
@@ -320,40 +320,39 @@ class ModimizerScanner:
             sa, (sw, vb, fut) = entry
             sink(self._finish_kmers(fut, sw, vb, lambda: rescan_window(sa)))
 
-        with profiling.trace_region():
-            it = iter(batches)
-            while True:
-                while not eof and n_in - s < C + halo:
-                    try:
-                        codes_b, offs_b = next(it)
-                    except StopIteration:
-                        eof = True
-                        break
-                    cb = np.ascontiguousarray(codes_b).view(np.uint8)
-                    ob = np.asarray(offs_b, np.int64)
-                    if len(ob) == 0 or ob[-1] != len(cb):
-                        raise ValueError("scan_kmers_batches: batch offsets "
-                                         "must cover whole reads")
-                    offs = np.concatenate([offs, ob[1:] + n_in])
-                    buf = np.concatenate([buf, cb])
-                    n_in += len(cb)
-                if s >= n_in:
+        it = iter(batches)
+        while True:
+            while not eof and n_in - s < C + halo:
+                try:
+                    codes_b, offs_b = next(it)
+                except StopIteration:
+                    eof = True
                     break
-                pending.append((s, dispatch(s)))
-                s += C
-                if len(pending) > self.max_inflight:
-                    drain(pending.pop(0))
-                    # trim consumed bytes; the oldest pending chunk's window
-                    # stays resident for its host rescan
-                    cut = (pending[0][0] if pending else s) - base
-                    if cut > (64 << 20):
-                        buf = buf[cut:]
-                        base += cut
-                        j = max(int(np.searchsorted(offs, base,
-                                                    side="right")) - 1, 0)
-                        offs = offs[j:]
-            for entry in pending:
-                drain(entry)
+                cb = np.ascontiguousarray(codes_b).view(np.uint8)
+                ob = np.asarray(offs_b, np.int64)
+                if len(ob) == 0 or ob[-1] != len(cb):
+                    raise ValueError("scan_kmers_batches: batch offsets "
+                                     "must cover whole reads")
+                offs = np.concatenate([offs, ob[1:] + n_in])
+                buf = np.concatenate([buf, cb])
+                n_in += len(cb)
+            if s >= n_in:
+                break
+            pending.append((s, dispatch(s)))
+            s += C
+            if len(pending) > self.max_inflight:
+                drain(pending.pop(0))
+                # trim consumed bytes; the oldest pending chunk's window
+                # stays resident for its host rescan
+                cut = (pending[0][0] if pending else s) - base
+                if cut > (64 << 20):
+                    buf = buf[cut:]
+                    base += cut
+                    j = max(int(np.searchsorted(offs, base,
+                                                side="right")) - 1, 0)
+                    offs = offs[j:]
+        for entry in pending:
+            drain(entry)
         return sink.result()
 
     # ---- meta chunks (scan_stream, modutils -P) ----
@@ -368,7 +367,9 @@ class ModimizerScanner:
         offsets = np.asarray(offsets, np.int64)
         if self.host:
             self.used_device = False
-            return self._scan_host(codes, offsets)
+            out = self._scan_host(codes, offsets)
+            profiling.count("scan.rows", len(out[0]))
+            return out
         self._require_device()
         C = self.chunk
         kp = self.kp
@@ -381,22 +382,25 @@ class ModimizerScanner:
 
         def drain(entry):
             s, m, sw, fut = entry
-            km, meta, total = self._wait(fut)
-            total = int(total)
-            if total < 0:    # block or cap overflow: retry wide on device
-                self.n_wide += 1
-                km, meta, total = self._wait(launch(sw, m, wide=True))
+            with profiling.span("scan.download"):
+                km, meta, total = self._wait(fut)
                 total = int(total)
-            if total < 0:    # still overflowing: exact native host rescan
-                self.n_fallback += 1
-                kms, gpos, isF = self._rescan_rows(s, m, codes, offsets)
-            else:
-                kms = km[:total].numpy().view(np.uint64)
-                meta = meta[:total].numpy().view(np.uint32)
-                gpos = s + (meta >> 1).astype(np.int64)
-                isF = (meta & 1).astype(bool)
-                ok, _rid = _validity_filter(gpos, offsets, k)
-                kms, gpos, isF = kms[ok], gpos[ok], isF[ok]
+                if total < 0:    # block or cap overflow: retry wide
+                    self.n_wide += 1
+                    km, meta, total = self._wait(launch(sw, m, wide=True))
+                    total = int(total)
+                if total < 0:    # still overflowing: exact host rescan
+                    self.n_fallback += 1
+                    kms, gpos, isF = self._rescan_rows(s, m, codes, offsets)
+                else:
+                    kms = km[:total].numpy().view(np.uint64)
+                    meta = meta[:total].numpy().view(np.uint32)
+            if total >= 0:
+                with profiling.span("scan.validity"):
+                    gpos = s + (meta >> 1).astype(np.int64)
+                    isF = (meta & 1).astype(bool)
+                    ok, _rid = _validity_filter(gpos, offsets, k)
+                    kms, gpos, isF = kms[ok], gpos[ok], isF[ok]
             out_k.append(kms)
             out_p.append(gpos)
             out_f.append(isF)
@@ -404,8 +408,10 @@ class ModimizerScanner:
         pending = []
         for s in range(0, n, C):
             m = min(C, n - s)
-            sw = self._put_sw(codes[s:s + C + k - 1])
-            pending.append((s, m, sw, launch(sw, m)))
+            with profiling.span("scan.pack"):
+                sw = self._put_sw(codes[s:s + C + k - 1])
+            with profiling.span("scan.dispatch"):
+                pending.append((s, m, sw, launch(sw, m)))
             if len(pending) > self.max_inflight:
                 drain(pending.pop(0))
         for entry in pending:
@@ -413,8 +419,11 @@ class ModimizerScanner:
         if not out_k:
             return (np.zeros(0, np.uint64), np.zeros(0, np.int64),
                     np.zeros(0, bool))
-        return (np.concatenate(out_k), np.concatenate(out_p),
-                np.concatenate(out_f))
+        with profiling.span("scan.concat"):
+            out = (np.concatenate(out_k), np.concatenate(out_p),
+                   np.concatenate(out_f))
+        profiling.count("scan.rows", len(out[0]))
+        return out
 
 
 class _Sink:
@@ -430,10 +439,12 @@ class _Sink:
         if self.consumer is None:
             self.parts.append(kms)
         else:
-            with profiling.stage("scan.consumer"):
+            with profiling.span("scan.consumer"):
                 self.consumer(kms)
 
     def result(self):
+        """The consumer's total, or the kmers; counted as ``scan.rows``."""
+        profiling.count("scan.rows", self.total)
         if self.consumer is not None:
             return self.total
         return (np.concatenate(self.parts) if self.parts

@@ -34,7 +34,15 @@ import torch
 
 from .. import _build
 from ..ops.route import SENTINEL, gather_rows, route_rows
+from ..utils import profiling
 from .mesh import as_mesh
+
+
+def count_lookup(answers):
+    """The job's ``lookup.queries`` and ``lookup.hits`` (answers not 0)."""
+    if profiling.recording():
+        profiling.count("lookup.queries", len(answers))
+        profiling.count("lookup.hits", np.count_nonzero(answers))
 
 
 def _check(keys, vals, q):
@@ -161,6 +169,11 @@ class DeviceTable:
         absent (modsetIndexFind isAdd=false semantics).  On a mesh every
         rank passes the same queries and gets the whole answer."""
         q_kmers = np.ascontiguousarray(q_kmers, np.uint64)
+        out = self._find(q_kmers)
+        count_lookup(out)
+        return out
+
+    def _find(self, q_kmers):
         nq = len(q_kmers)
         if nq == 0:
             return np.zeros(0, np.uint32)

@@ -340,9 +340,9 @@ def overlap_counts(readset, dmax: int = 64, pair_cap: int = None,
     if device is None:
         device = getattr(readset, "device", None)
     dev = as_device(device, "overlap_counts")
-    with profiling.stage("overlaps.prep"):
+    with profiling.span("overlaps.prep"):
         rows, n_repeat, bad_repeat = overlap_inputs(readset)
-    with profiling.stage("overlaps.device"):
+    with profiling.span("overlaps.device"):
         x, j, h, strand, is_c1_cnt, firstc1_cnt = (
             torch.from_numpy(np.ascontiguousarray(a).view(
                 np.int32 if a.dtype == np.uint32 else np.uint8)).to(dev)
@@ -354,7 +354,7 @@ def overlap_counts(readset, dmax: int = 64, pair_cap: int = None,
         cnt = cnt.cpu().numpy().astype(np.uint32)
         plus = plus.cpu().numpy().astype(np.uint32)
         rank = rank.cpu().numpy().view(np.uint64)
-    with profiling.stage("overlaps.order"):
+    with profiling.span("overlaps.order"):
         px = (keys >> 32).astype(np.uint32)
         py = (keys & 0xFFFFFFFF).astype(np.uint32)
         # reference candidate order: per x, stable sort by descending count

@@ -218,7 +218,7 @@ class ShardedModsetBuilder:
         self._check_pending(force=True)
         if not self.recv_k:
             return
-        with profiling.stage("count.compact"):
+        with profiling.span("count.compact"):
             while True:
                 if self.routed:
                     out = compact_sharded(self.state_k, self.state_d,
@@ -298,28 +298,31 @@ class ShardedModsetBuilder:
         offsets = np.ascontiguousarray(offsets, np.int64)
         C = self.chunk
         NW = C // 32
+        emitted = self.total_emitted
         # pk_valid_words clears bits up to n_total: cover the whole stream
-        vwords = np.empty(-(-max(max(starts) + C, n_total) // 64),
-                          np.uint64)
-        L.pk_valid_words(offsets, len(offsets) - 1, n_total, k, vwords,
-                         len(vwords))
+        with profiling.span("count.validity"):
+            vwords = np.empty(-(-max(max(starts) + C, n_total) // 64),
+                              np.uint64)
+            L.pk_valid_words(offsets, len(offsets) - 1, n_total, k, vwords,
+                             len(vwords))
         for st in starts:
-            with profiling.stage("count.pack"):
+            with profiling.span("count.pack"):
                 seg = codes[st:st + C + k - 1]
                 sw = np.empty(NW + 2, np.uint64)
                 L.pk_pack2(np.ascontiguousarray(seg), len(seg), sw, NW + 2)
                 inputs = (self._put(sw),
                           self._put(vwords[st // 64:st // 64 + C // 64]))
-            with profiling.stage("count.scan"):
+            with profiling.span("count.scan"):
                 out = self._route(inputs, base + st)
             if self._buffered_rows() + self._recv_rows() > self.max_buffer_rows:
                 self._compact()
             self._append(out, base + st)
             self._pending.append((inputs, base + st, out))
-            with profiling.stage("count.check"):
+            with profiling.span("count.check"):
                 self._check_pending()
-        with profiling.stage("count.check"):
+        with profiling.span("count.check"):
             self._check_pending(force=True)
+        profiling.count("scan.rows", self.total_emitted - emitted)
 
     def _gathered(self):
         """The state of every rank, [n, S] each."""
@@ -384,7 +387,7 @@ class ShardedModsetBuilder:
         """(k-mers u64, counts u32) in first-encounter order: the insertion
         stream of the sequential build (on every rank of a mesh)."""
         self._compact()
-        with profiling.stage("count.download"):
+        with profiling.span("count.download"):
             ks, ds, ms = (t.reshape(-1) for t in self._gathered())
             real = ks != SENTINEL
             order = torch.argsort(ms[real], stable=True)
@@ -437,7 +440,7 @@ def sharded_merge(ms1, ms2, mesh=None):
     n1, n2 = ms1.max, ms2.max
     total = n1 + n2
     cap = max(1024, -(-total // n))  # slots a rank
-    with profiling.stage("merge.rows"):
+    with profiling.span("merge.rows"):
         lo, hi = r * cap, (r + 1) * cap
 
         def mine(a, b, fill, dtype, b_mark=0):
@@ -457,12 +460,12 @@ def sharded_merge(ms1, ms2, mesh=None):
         info = mine(ms1.info, ms2.info, 0, np.int32, 0x100)
         rank = torch.arange(lo, hi, dtype=torch.int64, device=mesh.device)
         rank[max(0, total - lo):] = POS_INF
-    with profiling.stage("merge.device"):
+    with profiling.span("merge.device"):
         out = sharded_merge_step(kmers, depth, info, rank, cap=cap,
                                  mesh=mesh)
         if mesh.any(out[4]):
             raise RuntimeError("sharded merge shard overflow; raise cap")
-    with profiling.stage("merge.gather"):
+    with profiling.span("merge.gather"):
         # the heads lead each rank's columns: gather as many rows as the
         # fullest rank holds, order them by rank on the device, and
         # download each column in its own width

@@ -12,6 +12,7 @@ test that ``csrc/scan_compact.cu`` takes, emulated with Python ints against
 ``h % w == 0``, and ``MODIMIZER_BLK`` refused above the kernel's limit."""
 
 import ast
+import contextlib
 import gzip
 import io
 import os
@@ -332,18 +333,47 @@ def test_modimizer_blk_above_the_kernel_limit_is_refused(blk, ok):
 
 
 def test_trace_region_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
+    """MODIMIZER_TRACE=<dir>: one Chrome trace a whole job, holding the
+    job's stage: marks, its spans (job id and parent in their args) and its
+    counters."""
+    import json
     from modimizer_tpu_torch.utils import profiling
-    monkeypatch.setattr(profiling, "_trace_dir", str(tmp_path))
-    monkeypatch.setattr(profiling, "_trace_active", [False])
-    sh = Seqhash.create(16, 16, 17)
-    codes, offsets = _stream(1)
-    scanner = port_ops.ModimizerScanner(sh, chunk=1 << 13, device="cpu")
-    assert len(scanner.scan_kmers(codes, offsets)) > 0
-    traces = list(tmp_path.glob("modimizer_trace.*.json"))
-    assert len(traces) == 1 and traces[0].stat().st_size > 0
-    with profiling.trace_region():      # the first call only
-        pass
-    assert len(list(tmp_path.glob("*.json"))) == 1
+    monkeypatch.setattr(profiling, "_jobs", [])
+    monkeypatch.setenv("MODIMIZER_TRACE", str(tmp_path / "traces"))
+    # the builder's path, as the benchmark's build: the whole-file parse
+    monkeypatch.setattr(port_cli, "DEVICE_COUNT_THRESHOLD", 1 << 12)
+    fa = random_fasta(tmp_path / "reads.fa", 30, 700, seed=5)
+    for _ in range(2):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            port_cli.main(["-c", "20", "16", "16", "17", "-a", str(fa)],
+                          device="cpu")
+    jobs = profiling.jobs()
+    traces = sorted((tmp_path / "traces").glob("modimizer_trace.*.json"))
+    assert [t.name for t in traces] == sorted(
+        "modimizer_trace.%d.%d.json" % (os.getpid(), j.id) for j in jobs)
+    assert len(jobs) == 2
+    for rec in jobs:
+        path = tmp_path / "traces" / ("modimizer_trace.%d.%d.json"
+                                      % (os.getpid(), rec.id))
+        events = json.loads(path.read_text())["traceEvents"]
+        marks = [e["name"][6:] for e in events
+                 if str(e.get("name", "")).startswith("stage:")]
+        spans = [e for e in events if e.get("cat") == "span"]
+        counters = {e["name"]: e["args"]["value"] for e in events
+                    if e.get("ph") == "C"}
+        names = [s.name for s in rec.spans]
+        assert sorted(marks) == sorted(names)
+        assert [e["name"] for e in spans] == names
+        assert [e["args"]["parent"] for e in spans] == \
+            [s.parent for s in rec.spans]
+        assert {e["args"]["job"] for e in spans} == {rec.id}
+        assert counters["parse.bases"] == 30 * 700
+        assert counters == rec.counters
+        root = spans[0]
+        for e in spans[1:]:
+            assert root["ts"] <= e["ts"]
+            assert e["ts"] + e["dur"] <= root["ts"] + root["dur"] + 1e-3
 
 
 # ---- the emit test's constants (ops/packed.emit_test) ----
