@@ -146,29 +146,68 @@ def _split_hdr(data, s, e):
     return hdr.decode("latin1"), ""
 
 
-def _parse_fasta(data: bytes, convert: np.ndarray, want_ids: bool):
-    """FASTA parse in the native runtime (numpy twin below is the oracle;
-    this host's numpy is pathologically slow on byte-level ops)."""
+# a FASTA pass takes one thread a this many bytes, up to OpenMP's threads
+PARSE_BYTES_A_THREAD = 4 << 20
+
+
+def parse_threads(n: int) -> int:
+    """The threads the native FASTA pass takes for ``n`` bytes."""
     from ..native import lib as native_lib
+    return max(1, min(n // PARSE_BYTES_A_THREAD,
+                      native_lib().io_max_threads()))
+
+
+def fasta_pass(data, conv: np.ndarray, threads: int):
+    """The native FASTA pass over ``data`` (any buffer) with the
+    256-entry int16 table ``conv``: (codes int8, offsets int64 [nrec + 1],
+    hdr int64 [nrec, 4]: the record's '>', header end, id end, desc
+    start).  No returned array views ``data``."""
+    from ..native import FASTA_ALLOC, lib as native_lib
+    out = []
+
+    def alloc(kind, count):
+        a = np.empty(count, np.int8 if kind == 2 else np.int64)
+        out.append(a)
+        return a.ctypes.data
+
     buf = np.frombuffer(data, np.uint8)
-    n = len(buf)
-    if n == 0:
-        return SeqBatch(np.zeros(0, np.int8), np.zeros(1, np.int64))
-    L = native_lib()
-    n_rec = L.io_fasta_count(buf, n)
+    nc = native_lib().io_fasta_parse(buf, len(buf), conv, threads,
+                                     FASTA_ALLOC(alloc))
+    if nc < 0:
+        raise MemoryError("FASTA parse: allocation failed")
+    offsets, hdr, codes = out
+    return codes, offsets, hdr.reshape(-1, 4)
+
+
+def _parse_fasta(data, convert: np.ndarray, want_ids: bool, threads=None):
+    """FASTA parse of ``data`` (any buffer) in the native runtime, on
+    ``threads`` threads (by default as ``parse_threads`` says); the tests
+    hold it against the JAX package's numpy twin of ``_parse_fasta_np``."""
     conv = np.ascontiguousarray(_full256(convert), np.int16)
-    codes = np.empty(n, np.int8)
-    offsets = np.zeros(n_rec + 1, np.int64)
-    hdr = np.zeros(2 * max(n_rec, 1), np.int64)
-    nc = L.io_parse_fasta(buf, n, conv, codes, offsets, hdr)
-    codes = codes[:nc]
+    return _fasta_batch(data, *fasta_pass(
+        data, conv, parse_threads(len(data)) if threads is None else threads),
+        want_ids)
+
+
+def _fasta_batch(data, codes, offsets, hdr, want_ids):
     ids, descs = [], []
-    if want_ids:
-        for r in range(n_rec):
-            i_, d_ = _split_hdr(data, hdr[2 * r], hdr[2 * r + 1])
-            ids.append(i_)
-            descs.append(d_)
+    if want_ids and len(hdr):
+        buf = np.frombuffer(data, np.uint8)
+        ids = _texts(buf, hdr[:, 0] + 1, hdr[:, 2])
+        descs = _texts(buf, hdr[:, 3], hdr[:, 1])
     return SeqBatch(codes, offsets, ids, descs)
+
+
+def _texts(buf, a, b):
+    """``[bytes(buf[a[i]:b[i]]).decode("latin1")]`` in one gather and one
+    decode: the slices joined by newlines, which no header line holds."""
+    lens = np.maximum(b - a, 0)
+    ends = np.cumsum(lens + 1)
+    # a slice's separator slot reads buf[b], inside the buffer
+    at = np.repeat(np.minimum(a, b) - (ends - lens - 1), lens + 1)
+    joined = buf[np.arange(ends[-1]) + at]
+    joined[ends - 1] = 0x0A
+    return joined.tobytes().decode("latin1").split("\n")[:-1]
 
 
 def _parse_fasta_np(data: bytes, convert: np.ndarray, want_ids: bool):
@@ -481,19 +520,11 @@ def incomplete_tail_fixup(data, ftype):
     the partial record removed, or (data, None) if the tail is complete."""
     if not len(data):
         return data, None
-    nl = data.count(b"\n")
     if ftype == FASTA:
-        r = data.rfind(b"\n>")
-        cut = r + 1 if r >= 0 else 0
-        if data[-1] != 0x0A:
-            return data[:cut], nl + 1
-        tail = data[cut:]
-        if tail.find(b"\n") == len(tail) - 1:
-            # final record is a bare header line: the reference hits EOF
-            # advancing to its (absent) sequence line
-            return data[:cut], nl + 1
-        return data, None
+        cut, n = fasta_tail_cut(data)
+        return (data, None) if n is None else (data[:cut], n)
     if ftype == FASTQ:
+        nl = data.count(b"\n")
         if data[-1] == 0x0A and nl % 4 == 0:
             return data, None
         cut = len(data)
@@ -505,6 +536,57 @@ def incomplete_tail_fixup(data, ftype):
             cut = data.rfind(b"\n", 0, cut - 1) + 1  # complete lines
         return data[:cut], nl + 1
     return data, None
+
+
+def fasta_tail_cut(data):
+    """``incomplete_tail_fixup``'s FASTA rule over any non-empty buffer
+    (bytes, bytearray, a map) without a copy: (cut, N) where the final
+    record, from ``cut``, is partial, else (len(data), None).  The final
+    record starts at the last '>' at 0 or after a newline, found by
+    one-byte reverse searches; the newlines of N are counted only when the
+    record is dropped."""
+    n = len(data)
+    cut = data.rfind(b">")
+    while cut > 0 and data[cut - 1] != 0x0A:
+        cut = data.rfind(b">", 0, cut)
+    cut = max(cut, 0)
+    # EOF mid-line, or the final record is a bare header line: the
+    # reference hits EOF advancing to its (absent) sequence line
+    if data[n - 1] != 0x0A or data.find(b"\n", cut) == n - 1:
+        from ..native import byte_hist256
+        return cut, int(byte_hist256(np.frombuffer(data, np.uint8))[0x0A]) + 1
+    return n, None
+
+
+def _map_fasta(f):
+    """A read-only map of the open file ``f`` if it is a regular, non-empty
+    file whose first byte is '>' (plain FASTA), else None.  Not populated:
+    the pass's threads fault its pages in together, where ``MAP_POPULATE``
+    maps them on one thread first (1-10 ms more a 64-200 MB file on an
+    8-core host)."""
+    import mmap
+    import stat
+    st = os.fstat(f.fileno())
+    if not stat.S_ISREG(st.st_mode) or st.st_size == 0 or f.read(1) != b">":
+        f.seek(0)
+        return None
+    return mmap.mmap(f.fileno(), 0, flags=mmap.MAP_PRIVATE,
+                     prot=mmap.PROT_READ)
+
+
+def _read_fasta(data, convert, want_ids):
+    """The FASTA path of ``read_seq_file`` over whole-file bytes or a map:
+    the partial final record dropped as ``incomplete_tail_fixup`` drops it,
+    then one native pass over a view of the rest."""
+    cut, line = fasta_tail_cut(data)
+    if line is not None:
+        import sys
+        sys.stderr.write("incomplete sequence record line %d\n" % line)
+    threads = parse_threads(cut)
+    profiling.count("parse.threads", threads)
+    return _parse_fasta(np.frombuffer(data, np.uint8, cut),
+                        dna2textAmbigConv if convert is None else convert,
+                        want_ids, threads)
 
 
 def _apply_tail_fixup(data, ftype):
@@ -520,8 +602,10 @@ def read_seq_file(filename, convert=None, is_qual=False, want_ids=True):
 
     ``convert=None`` mirrors the reference defaults: FASTA gets
     dna2textAmbigConv (whitespace removal), FASTQ/binary stay raw text
-    (seqio.c:49,76).  Returns (batch, file_type); the job's counter
-    ``parse.bases`` gains the batch's bases.
+    (seqio.c:49,76).  Returns (batch, file_type).  A plain FASTA file is
+    parsed from a map of its pages.  The job's counters: ``parse.bases``
+    gains the batch's bases, ``parse.mapped`` 1 a mapped file and
+    ``parse.threads`` the threads of each native FASTA pass.
     """
     batch, ftype = _read_seq_file(filename, convert, is_qual, want_ids)
     profiling.count("parse.bases", len(batch.codes))
@@ -537,16 +621,20 @@ def _read_seq_file(filename, convert, is_qual, want_ids):
             data = gz_decompress_all(data)
     else:
         with open(filename, "rb") as f:
-            data = bytearray(f.read())
+            mm = _map_fasta(f)
+            if mm is None:
+                data = bytearray(f.read())
+        if mm is not None:
+            profiling.count("parse.mapped", 1)
+            with mm:
+                return _read_fasta(mm, convert, want_ids), FASTA
         if data[:2] == b"\x1f\x8b":
             data = gz_decompress_all(data)
     if not data:
         raise IOError(f"sequence file {filename} unreadable or empty")
     ftype = sniff_type(data[0])
     if ftype == FASTA:
-        conv = convert if convert is not None else dna2textAmbigConv
-        return _parse_fasta(_apply_tail_fixup(data, FASTA), conv,
-                            want_ids), FASTA
+        return _read_fasta(data, convert, want_ids), FASTA
     if ftype == FASTQ:
         return _parse_fastq(_apply_tail_fixup(data, FASTQ), convert,
                             is_qual, want_ids), FASTQ

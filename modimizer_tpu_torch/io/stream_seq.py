@@ -32,19 +32,11 @@ _GZ_WHOLE_MAX = 1 << 30
 
 
 def _parse_segment_fasta(data, conv):
-    """Native FASTA parse of one segment -> (codes i8, offsets i64)."""
-    from ..native import lib as native_lib
-    L = native_lib()
-    buf = np.frombuffer(data, np.uint8)
-    n = len(buf)
-    if n == 0:
-        return np.zeros(0, np.int8), np.zeros(1, np.int64)
-    n_rec = L.io_fasta_count(buf, n)
-    codes = np.empty(n, np.int8)
-    offsets = np.zeros(n_rec + 1, np.int64)
-    hdr = np.zeros(2 * max(n_rec, 1), np.int64)
-    nc = L.io_parse_fasta(buf, n, conv, codes, offsets, hdr)
-    return codes[:nc], offsets
+    """Native FASTA parse of one segment on one thread (the producer
+    overlaps the device) -> (codes i8, offsets i64)."""
+    from .seqio import fasta_pass
+    codes, offsets, _hdr = fasta_pass(data, conv, 1)
+    return codes, offsets
 
 
 def _parse_segment_fastq(data, conv):

@@ -22,6 +22,9 @@ _LIB = None
 
 _SOURCES = ["modset_native.cpp", "modasm_native.cpp", "cram_native.cpp"]
 
+# io_fasta_parse's allocator: (kind, count) -> the address of a new array
+FASTA_ALLOC = ctypes.CFUNCTYPE(ctypes.c_void_p, ctypes.c_int, ctypes.c_int64)
+
 
 def _build() -> Path:
     srcs = [_HERE / s for s in _SOURCES]
@@ -166,10 +169,10 @@ def _declare(L):
     L.io_byte_hist.argtypes = [u8p, c.c_int64, u64p]
     L.io_u16_hist.restype = None
     L.io_u16_hist.argtypes = [u16p, c.c_int64, u64p, c.c_int64]
-    L.io_fasta_count.restype = c.c_int64
-    L.io_fasta_count.argtypes = [u8p, c.c_int64]
-    L.io_parse_fasta.restype = c.c_int64
-    L.io_parse_fasta.argtypes = [u8p, c.c_int64, i16p, i8p, i64p, i64p]
+    L.io_max_threads.restype = c.c_int
+    L.io_max_threads.argtypes = []
+    L.io_fasta_parse.restype = c.c_int64
+    L.io_fasta_parse.argtypes = [u8p, c.c_int64, i16p, c.c_int, FASTA_ALLOC]
     L.io_fastq_count.restype = c.c_int64
     L.io_fastq_count.argtypes = [u8p, c.c_int64]
     L.io_parse_fastq.restype = c.c_int64

@@ -2051,40 +2051,151 @@ extern "C" I64 sh_scan_emit(const U8 *codes, I64 n, int k, U64 w, U64 factor1,
 typedef int8_t I8;
 typedef int16_t I16;
 
-extern "C" I64 io_fasta_count(const U8 *d, I64 n) {
+// The whole-file FASTA parse, one call over `nt` OpenMP threads:
+//  1. record starts, '>' at 0 or after '\n', by memchr over one byte range
+//     a thread, gathered in order through the threads' counts;
+//  2. each record's header end (its first '\n', clamped to n - 1 as the
+//     numpy twin does) and the id/desc split (the first of 9, 32, 11, 12,
+//     13 in the header);
+//  3. the kept bytes (conv >= 0, outside the header lines) counted in
+//     blocks of the file, so one long record spreads over every thread;
+//     a record's offset is the count before its '>';
+//  4. the codes written block by block, a block only into its own slots.
+// `alloc(kind, count)` hands out the outputs, from the calling thread and
+// outside any parallel region: kind 0 offsets I64[nrec + 1], kind 1 hdr
+// I64[4 nrec] (the record's '>', header end, id end, desc start, a
+// record), kind 2 codes I8[count].  Returns the code count, or -1 when an
+// allocation failed.
+typedef void *(*FastaAlloc)(int kind, I64 count);
+
+extern "C" int io_max_threads() {
+#ifdef _OPENMP
+  return omp_get_max_threads();
+#else
+  return 1;
+#endif
+}
+
+static inline bool hdr_space(U8 c) {
+  return c == 9 || c == 32 || c == 11 || c == 12 || c == 13;
+}
+
+// the kept bytes of d[x, y): those with conv >= 0 (keep[b] is 1 there)
+static inline I64 fasta_count(const U8 *keep, const U8 *d, I64 x, I64 y) {
   I64 cnt = 0;
-  for (I64 i = 0; i < n; ++i)
-    if (d[i] == '>' && (i == 0 || d[i - 1] == '\n')) ++cnt;
+  for (; x < y; ++x) cnt += keep[d[x]];
   return cnt;
 }
 
-// codes: out I8[n]; offsets: out I64[nrec+1]; hdr: out I64[2*nrec]
-// (start,end of header text, '>' excluded).  Returns total code count.
-extern "C" I64 io_parse_fasta(const U8 *d, I64 n, const I16 *conv, I8 *codes,
-                              I64 *offsets, I64 *hdr) {
-  I64 nc = 0, rec = 0;
-  offsets[0] = 0;
-  I64 i = 0;
-  while (i < n) {
-    // record start: '>' at 0 or after newline (callers sniffed byte 0)
-    if (!(d[i] == '>' && (i == 0 || d[i - 1] == '\n'))) { ++i; continue; }
-    I64 start = i;
-    I64 he = start;
-    while (he < n && d[he] != '\n') ++he;
-    if (he > n - 1) he = n - 1;  // numpy parser clamp, kept for parity
-    hdr[2 * rec] = start + 1;
-    hdr[2 * rec + 1] = he;
-    I64 j = he + 1;
-    while (j < n && !(d[j] == '>' && d[j - 1] == '\n')) {
-      I16 c = conv[d[j]];
-      if (c >= 0) codes[nc++] = (I8)c;
-      ++j;
-    }
-    ++rec;
-    offsets[rec] = nc;
-    i = j;
+// the codes of d[x, y) stored from codes + pos, none at or past `end`;
+// returns the next slot.  The converting store writes every byte and moves
+// on past kept ones; it stops at `end`, so no store lands in a slot of the
+// next block.
+static inline I64 fasta_put(const I16 *conv, const U8 *d, I64 x, I64 y,
+                            I8 *codes, I64 pos, I64 end) {
+  for (; x < y && pos < end; ++x) {
+    const I16 c = conv[d[x]];
+    codes[pos] = (I8)c;
+    pos += c >= 0;
   }
-  return nc;
+  return pos;
+}
+
+extern "C" I64 io_fasta_parse(const U8 *d, I64 n, const I16 *conv, int nt,
+                              FastaAlloc alloc) {
+  if (nt < 1) nt = 1;
+  std::vector<std::vector<I64>> found(nt);
+  const I64 span = (n + nt - 1) / nt;
+#pragma omp parallel for num_threads(nt) schedule(static, 1)
+  for (int t = 0; t < nt; ++t) {
+    I64 a = t * span, b = a + span < n ? a + span : n;
+    std::vector<I64> &v = found[t];
+    for (I64 i = a; i < b;) {
+      const U8 *q = (const U8 *)memchr(d + i, '>', b - i);
+      if (!q) break;
+      i = q - d;
+      if (i == 0 || d[i - 1] == '\n') v.push_back(i);
+      ++i;
+    }
+  }
+  std::vector<I64> first(nt + 1, 0);
+  for (int t = 0; t < nt; ++t) first[t + 1] = first[t] + found[t].size();
+  const I64 nrec = first[nt];
+  I64 *offsets = (I64 *)alloc(0, nrec + 1);
+  I64 *hdr = (I64 *)alloc(1, 4 * nrec);
+  if (!offsets || !hdr) return -1;
+#pragma omp parallel for num_threads(nt) schedule(static, 1)
+  for (int t = 0; t < nt; ++t)
+    for (size_t j = 0; j < found[t].size(); ++j)
+      hdr[4 * (first[t] + j)] = found[t][j];
+  found.clear();
+
+#pragma omp parallel for num_threads(nt) schedule(static, 4096)
+  for (I64 r = 0; r < nrec; ++r) {
+    const I64 s = hdr[4 * r], e = r + 1 < nrec ? hdr[4 * r + 4] : n;
+    const U8 *q = (const U8 *)memchr(d + s, '\n', e - s);
+    I64 he = q ? q - d : n;
+    if (he > n - 1) he = n - 1;
+    I64 i = s + 1;
+    while (i < he && !hdr_space(d[i])) ++i;
+    hdr[4 * r + 1] = he;
+    hdr[4 * r + 2] = i < he ? i : he;  // he < s + 1 only where clamped
+    hdr[4 * r + 3] = i < he ? i + 1 : he;
+  }
+
+  U8 keep[256];
+  for (int c = 0; c < 256; ++c) keep[c] = conv[c] >= 0;
+  const I64 nb = nt == 1 ? 1 : 8 * (I64)nt;
+  const I64 B = n > nb ? (n + nb - 1) / nb : 1;
+  std::vector<I64> kept(nb + 1, 0), r0(nb, 0);
+  // the record that holds byte a: the last whose '>' is at or before a
+  auto record_at = [&](I64 a) {
+    I64 lo = 0, hi = nrec;  // hdr[4 lo] <= a < hdr[4 hi]
+    if (!nrec || hdr[0] > a) return (I64)0;
+    while (hi - lo > 1) {
+      I64 m = (lo + hi) / 2;
+      if (hdr[4 * m] <= a) lo = m; else hi = m;
+    }
+    return lo;
+  };
+  // a record's sequence is (header end, next '>'), the file's end last
+#pragma omp parallel for num_threads(nt) schedule(dynamic, 1)
+  for (I64 b = 0; b < nb; ++b) {
+    const I64 a = b * B, z = a + B < n ? a + B : n;
+    I64 cnt = 0, r = record_at(a);
+    r0[b] = r;
+    for (; r < nrec && hdr[4 * r] < z; ++r) {
+      const I64 s = hdr[4 * r];
+      if (s >= a) offsets[r] = cnt;
+      const I64 e = r + 1 < nrec ? hdr[4 * r + 4] : n;
+      const I64 x = hdr[4 * r + 1] + 1 > a ? hdr[4 * r + 1] + 1 : a;
+      const I64 y = e < z ? e : z;
+      if (x < y) cnt += fasta_count(keep, d, x, y);
+    }
+    kept[b + 1] = cnt;
+  }
+  for (I64 b = 0; b < nb; ++b) kept[b + 1] += kept[b];
+  const I64 total = kept[nb];
+#pragma omp parallel for num_threads(nt) schedule(static, 4096)
+  for (I64 r = 0; r < nrec; ++r) offsets[r] += kept[hdr[4 * r] / B];
+  offsets[nrec] = total;
+
+  I8 *codes = (I8 *)alloc(2, total);
+  if (!codes) return -1;
+  // each block stores only into its own slots, [kept[b], kept[b + 1])
+#pragma omp parallel for num_threads(nt) schedule(dynamic, 1)
+  for (I64 b = 0; b < nb; ++b) {
+    const I64 a = b * B, z = a + B < n ? a + B : n;
+    I64 pos = kept[b];
+    const I64 end = kept[b + 1];
+    for (I64 r = r0[b]; r < nrec && hdr[4 * r] < z && pos < end; ++r) {
+      const I64 e = r + 1 < nrec ? hdr[4 * r + 4] : n;
+      const I64 x = hdr[4 * r + 1] + 1 > a ? hdr[4 * r + 1] + 1 : a;
+      const I64 y = e < z ? e : z;
+      if (x < y) pos = fasta_put(conv, d, x, y, codes, pos, end);
+    }
+  }
+  return total;
 }
 
 extern "C" I64 io_fastq_count(const U8 *d, I64 n) {

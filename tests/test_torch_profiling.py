@@ -9,6 +9,7 @@ clock through its job's anchor, lies within 1 ms of its ``stage:`` mark;
 self times; and the ``MODIMIZER_STAGES`` report."""
 
 import contextlib
+import gzip
 import importlib.util
 import io
 from pathlib import Path
@@ -113,7 +114,10 @@ def test_a_build_job_is_one_tree_and_counts_its_work(data, recorder):
     assert rec.counters["parse.bases"] == N_READS * READ_LEN
     assert rec.counters["scan.rows"] == len(rows)
     assert "total hashes %d," % len(rows) in text
-    assert set(rec.counters) == {"parse.bases", "scan.rows"}
+    assert rec.counters["parse.mapped"] == 1
+    assert rec.counters["parse.threads"] == 1       # under 8 MiB: one
+    assert set(rec.counters) == {"parse.bases", "scan.rows", "parse.mapped",
+                                 "parse.threads"}
 
 
 def test_a_map_job_is_one_tree_and_counts_its_work(data, recorder):
@@ -133,9 +137,23 @@ def test_a_map_job_is_one_tree_and_counts_its_work(data, recorder):
     query = host_rows(data / "reads.fa", 24, 31)
     c = rec.counters
     assert c["parse.bases"] == GENOME_LEN + N_READS * READ_LEN
+    assert c["parse.mapped"] == 2                  # the reference, the reads
+    assert c["parse.threads"] == 2
     assert c["scan.rows"] == len(ref) + len(query)
     assert c["lookup.queries"] == len(query)
     assert c["lookup.hits"] == np.isin(query, ref).sum() > 0
+
+
+def test_a_plain_fasta_is_parsed_from_a_map(data, recorder, tmp_path):
+    gz = tmp_path / "reads.fa.gz"
+    gz.write_bytes(gzip.compress((data / "reads.fa").read_bytes()))
+    for name, mapped in [(data / "reads.fa", 1), (gz, None)]:
+        with profiling.job("parse"):
+            batch, ftype = seqio.read_seq_file(str(name))
+        rec = profiling.jobs()[-1]
+        assert ftype == seqio.FASTA and batch.n == N_READS
+        assert rec.counters.get("parse.mapped") == mapped
+        assert rec.counters["parse.threads"] >= 1
 
 
 def test_the_host_lookup_counts_too(data, recorder, monkeypatch):
