@@ -49,16 +49,19 @@ def write_fasta(path, names, seqs):
             f.write(b"\n")
 
 
+def input_paths(needed, directory):
+    """{input: the path of its FASTA file in ``directory``}."""
+    return {name: "%s/%s.fa" % (directory, name) for name in needed}
+
+
 def write_inputs(inputs, cfg, needed, directory):
     """Write the FASTA files a job reads: "genome" (one record named
     cfg["genome_name"]) and "reads" (r0, r1, ...).  {input: path}."""
-    paths = {}
-    for name in needed:
-        path = "%s/%s.fa" % (directory, name)
+    paths = input_paths(needed, directory)
+    for name, path in paths.items():
         if name == "genome":
             write_fasta(path, [cfg["genome_name"]], [inputs["genome"]])
         else:
             reads = inputs["reads"]
             write_fasta(path, ("r%d" % i for i in range(len(reads))), reads)
-        paths[name] = path
     return paths

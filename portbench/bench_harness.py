@@ -7,7 +7,13 @@ per-layer metric is found by name: ``configs/<config>.json``,
 ``traffic/<traffic>.json`` (the tool, its argv template, its inputs, the
 end-to-end rate it reports and the kind of check), ``checks/<kind>.py``
 and ``metrics/<metric>.py``.  A new cell or metric is new files and new
-entries in ``BENCHMARK.json``; nothing here names a cell."""
+entries in ``BENCHMARK.json``; nothing here names a cell.
+
+A cell on one card runs in this process.  A cell on n > 1 cards runs as
+n ranks, one process a card (``bench_ranks.py``), each calling
+``run_cell`` with its ``Ranks``: the jobs run in lockstep, and rank 0
+(the lead) makes the inputs, keeps the job's objects, traces, checks and
+makes the result."""
 
 import contextlib
 import importlib
@@ -44,6 +50,7 @@ class Spec:
     """BENCHMARK.json and the files it names."""
 
     def __init__(self, bench_json, here=HERE):
+        self.path = Path(bench_json)
         self.bench = load_json(bench_json)
         self.here = Path(here)
 
@@ -88,16 +95,22 @@ def job_argv(traffic, values):
 class Spy:
     """Keeps, for one job of the window drawn from the seed (reservoir
     sampling, so each job is as likely), the argument of the port's
-    function that holds the job's result."""
+    function that holds the job's result.  ``target`` None keeps
+    nothing (a rank above 0)."""
 
     def __init__(self, target, seed):
+        self.rng = random.Random(seed)
+        self.current = self.kept = None
+        if target is None:
+            self.module = None
+            return
         module, self.fn, self.arg = target
         self.module = importlib.import_module(module)
         self.orig = getattr(self.module, self.fn)
-        self.rng = random.Random(seed)
-        self.current = self.kept = None
 
     def __enter__(self):
+        if self.module is None:
+            return self
         orig, arg = self.orig, self.arg
 
         def spy(*args, **kwargs):
@@ -108,7 +121,8 @@ class Spy:
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.fn, self.orig)
+        if self.module is not None:
+            setattr(self.module, self.fn, self.orig)
         self.current = None
 
     def job_done(self, i):
@@ -139,23 +153,48 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
-             say=print):
-    """Run cell ``name`` and return its result object (the last line).
-    ``cfg`` replaces the cell's configuration (the CPU tests' small
-    sizes); ``t_start`` is the process's start on time.perf_counter."""
-    cell = spec.cell(name)
-    cfg = dict(spec.config(cell) if cfg is None else cfg)
-    traffic = spec.traffic(cell)
-    kind = importlib.import_module("checks." + traffic["check"])
+def set_caches():
+    """The kernel caches at fixed directories inside the checkout."""
     for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
                      ("TRITON_CACHE_DIR", "triton"),
                      ("CUDA_CACHE_PATH", "cuda")):
         os.environ[var] = str(HERE / "_cache" / sub)
 
+
+class Solo:
+    """The one rank of a cell on one card: every job is its own."""
+
+    rank, n = 0, 1
+
+    def go(self, want):
+        return want
+
+    def done(self, err):
+        return err
+
+    def gather(self, _key, value):
+        return [value]
+
+
+def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
+             say=print, ranks=None, work=None):
+    """Run cell ``name`` and return its result object (the last line).
+    ``cfg`` replaces the cell's configuration (the CPU tests' small
+    sizes); ``t_start`` is the run's start on time.perf_counter
+    (CLOCK_MONOTONIC, one clock for every process of the machine).
+    ``ranks`` (``bench_ranks.Ranks``) runs it as one rank of several, in
+    ``work``, a directory every rank sees; a rank above 0 returns None."""
+    cell = spec.cell(name)
+    cfg = dict(spec.config(cell) if cfg is None else cfg)
+    traffic = spec.traffic(cell)
+    kind = importlib.import_module("checks." + traffic["check"])
+    set_caches()
+    ranks = Solo() if ranks is None else ranks
+    lead = ranks.rank == 0
+
     import numpy as np
     import torch
-    from bench_data import make_inputs, write_inputs
+    from bench_data import input_paths, make_inputs, write_inputs
     from bench_trace import StageRecorder, Window, breakdown, read_trace
     from checks import text_ok
     on_card = torch.device(device).type == "cuda"
@@ -165,47 +204,64 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
     importlib.import_module(PORT + ".native").lib()       # g++, first run
     profiling = importlib.import_module(PORT + ".utils.profiling")
 
-    work = tempfile.mkdtemp(prefix="portbench.")
+    own_work = work is None
+    work = tempfile.mkdtemp(prefix="portbench.") if own_work else work
     try:
-        inputs = make_inputs(cfg, seed)
-        values = dict(cfg, **write_inputs(inputs, cfg, traffic["inputs"],
-                                          work))
-        argv = job_argv(traffic, values)
-        bases = int(np.prod(inputs[traffic["work"]].shape))
+        if lead:
+            inputs = make_inputs(cfg, seed)
+            paths = write_inputs(inputs, cfg, traffic["inputs"], work)
+            bases = int(np.prod(inputs[traffic["work"]].shape))
+        else:                                   # rank 0's files
+            paths = input_paths(traffic["inputs"], work)
+        argv = job_argv(traffic, dict(cfg, **paths))
+
+        def out_path(job):
+            return os.path.join(work, job + ".out") if lead else os.devnull
 
         recorder = (StageRecorder(profiling, torch.profiler.record_function)
-                    if trace else contextlib.nullcontext())
+                    if trace and lead else contextlib.nullcontext())
         prof = (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) if trace else None)
         mark = (torch.profiler.record_function if trace
                 else lambda _name: contextlib.nullcontext())
         errors, ends = [], []
-        with Spy(kind.SPY, seed) as spy, recorder:
-            ok, err = run_job(main, argv, os.path.join(work, "warm.out"),
-                              device)                  # warm-up: set-up
+        with Spy(kind.SPY if lead else None, seed) as spy, recorder:
+            ranks.go(True)                     # the inputs are written
+            _ok, err = run_job(main, argv, out_path("warm"),
+                               device)                  # warm-up: set-up
             sync(device)
-            if not ok:
+            err = ranks.done(err)
+            if err:
                 errors.append(err)
             if prof is not None:
                 prof.start()
             t_first = time.perf_counter()
             with mark("window"):
-                while not ends or ends[-1] - t_first < seconds:
+                while ranks.go(not ends or ends[-1] - t_first < seconds):
                     i = len(ends)
                     with mark("job:" + traffic["tool"]):
-                        ok, err = run_job(main, argv, os.path.join(
-                            work, "job%d.out" % i), device)
+                        _ok, err = run_job(main, argv,
+                                           out_path("job%d" % i), device)
                         sync(device)
+                    err = ranks.done(err)    # every rank has ended the job
                     ends.append(time.perf_counter())
                     spy.job_done(i)
-                    if not ok:
+                    if err:
                         errors.append(err)
             if prof is not None:
                 prof.stop()
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        if not lead:
+            ranks.put("peak", peak)
+            if prof is not None:
+                window_us, device_ev, _marks = read_trace(prof)
+                ranks.put("busy", Window(0, 0, [], {}, window_us,
+                                         device_ev).busy_s)
+            return None
+        peak = max(ranks.gather("peak", peak))      # the fullest card's
         span = ends[-1] - t_first
         jobs = len(ends)
-        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
         say(json.dumps({"window": {"jobs": jobs, "span_s": span,
                                    "setup_s": t_first - t_start,
                                    "job_s": [b - a for a, b in zip(
@@ -236,7 +292,7 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
         result = {"correct": correct, "attempted": jobs, "failed": failed}
         if trace:
             win = Window(span, jobs, spans, kind.sizes(want), window_us,
-                         device_ev)
+                         device_ev, ranks.n)
             metrics = {}
             for m in spec.metrics("per_layer", cell):
                 v = spec.reader(m["name"])(win)
@@ -256,7 +312,8 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
                else "cpu",
                "count": cell["chips"], "memory_peak_bytes": peak}
         if trace:
-            dev["busy_s"] = win.busy_s
+            busy = ranks.gather("busy", win.busy_s)   # every card's
+            dev["busy_s"] = None if None in busy else sum(busy) / len(busy)
             dev["window_s"] = win.window_s
         result["device"] = dev
         if trace and window_us is not None:
@@ -268,4 +325,5 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
             sys.stderr.write("a job failed: %s\n" % err[-2000:])
         return result
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if own_work:
+            shutil.rmtree(work, ignore_errors=True)

@@ -13,7 +13,9 @@ import re
 import time
 from contextlib import contextmanager
 
-MARK = re.compile(r"^(stage:|job:|window$)")
+# the harness's marks, and c10d's mark of each collective (nccl:<op>),
+# which the trace mirrors onto the card's timeline over its kernels
+MARK = re.compile(r"^(stage:|job:|window$|nccl:)")
 
 
 class StageRecorder:
@@ -62,12 +64,15 @@ def short_name(name):
 class Window:
     """What a per-layer metric reads: the window's span on the host clock
     and on the trace's, the card's busy seconds, the jobs run, the stage
-    spans and device events inside it, and one job's work counts."""
+    spans and device events inside it, one job's work counts, and the
+    ranks (one a card) the jobs ran on.  On several ranks the spans and
+    events are rank 0's, on card 0."""
 
     def __init__(self, span_s, jobs, spans, sizes, window_us=None,
-                 device=()):
+                 device=(), ranks=1):
         self.span_s = span_s
         self.jobs = jobs
+        self.ranks = ranks
         self.spans = spans
         self.sizes = sizes
         self.window_s = (None if window_us is None

@@ -18,7 +18,8 @@ def test_the_control_fails_at_test_size(spec, cell, seed):
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("cell", ["ecoli_hifi30x.build", "grch38_chr20.map"])
+@pytest.mark.parametrize("cell", ["ecoli_hifi30x.build", "grch38_chr20.map",
+                                  "grch38_chr20.map_mesh4"])
 def test_the_control_fails_at_the_cells_size(spec, cuda_card, cell):
     for seed in (11, 12, 13):
         numbers, limits = control_numbers(spec, cell, seed, cuda_card)
