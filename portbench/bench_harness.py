@@ -92,43 +92,67 @@ def job_argv(traffic, values):
     return argv
 
 
+def _attr(module, qualname):
+    """(owner, name) of ``module.<qualname>``, a dotted path such as
+    "Class.method"."""
+    owner = importlib.import_module(module)
+    *outer, name = qualname.split(".")
+    for part in outer:
+        owner = getattr(owner, part)
+    return owner, name
+
+
 class Spy:
     """Keeps, for one job of the window drawn from the seed (reservoir
     sampling, so each job is as likely), the argument of the port's
-    function that holds the job's result.  ``target`` None keeps
-    nothing (a rank above 0)."""
+    function that holds the job's result, and, where ``returns`` names a
+    second function of the port, what that one returned in the job, call
+    by call.  ``target`` None keeps nothing (a rank above 0)."""
 
-    def __init__(self, target, seed):
+    def __init__(self, target, seed, returns=None):
         self.rng = random.Random(seed)
         self.current = self.kept = None
+        self.returned, self.kept_returned = [], []
+        self.taps = []
         if target is None:
-            self.module = None
             return
-        module, self.fn, self.arg = target
-        self.module = importlib.import_module(module)
-        self.orig = getattr(self.module, self.fn)
+        module, fn, arg = target
+
+        def keep_arg(orig):
+            def spy(*args, **kwargs):
+                self.current = args if arg is None else args[arg]
+                return orig(*args, **kwargs)
+            return spy
+
+        def keep_return(orig):
+            def spy(*args, **kwargs):
+                out = orig(*args, **kwargs)
+                self.returned.append(out)
+                return out
+            return spy
+
+        self.taps.append(_attr(module, fn) + (keep_arg,))
+        if returns is not None:
+            self.taps.append(_attr(*returns) + (keep_return,))
 
     def __enter__(self):
-        if self.module is None:
-            return self
-        orig, arg = self.orig, self.arg
-
-        def spy(*args, **kwargs):
-            self.current = args if arg is None else args[arg]
-            return orig(*args, **kwargs)
-
-        setattr(self.module, self.fn, spy)
+        self.origs = [getattr(owner, name) for owner, name, _ in self.taps]
+        for (owner, name, wrap), orig in zip(self.taps, self.origs):
+            setattr(owner, name, wrap(orig))
         return self
 
     def __exit__(self, *exc):
-        if self.module is not None:
-            setattr(self.module, self.fn, self.orig)
+        for (owner, name, _), orig in zip(self.taps, self.origs):
+            setattr(owner, name, orig)
         self.current = None
+
+    def job_start(self):
+        self.current, self.returned = None, []
 
     def job_done(self, i):
         if self.rng.random() * (i + 1) < 1:
-            self.kept = self.current
-        self.current = None
+            self.kept, self.kept_returned = self.current, self.returned
+        self.job_start()
 
 
 def run_job(main, argv, out_path, device):
@@ -192,9 +216,8 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
     ranks = Solo() if ranks is None else ranks
     lead = ranks.rank == 0
 
-    import numpy as np
     import torch
-    from bench_data import input_paths, make_inputs, write_inputs
+    from bench_data import bases, input_paths, make_inputs, write_inputs
     from bench_trace import StageRecorder, Window, breakdown, read_trace
     from checks import text_ok
     on_card = torch.device(device).type == "cuda"
@@ -208,9 +231,9 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
     work = tempfile.mkdtemp(prefix="portbench.") if own_work else work
     try:
         if lead:
-            inputs = make_inputs(cfg, seed)
+            inputs = make_inputs(cfg, seed, traffic)
             paths = write_inputs(inputs, cfg, traffic["inputs"], work)
-            bases = int(np.prod(inputs[traffic["work"]].shape))
+            work_bases = bases(inputs, traffic["work"])
         else:                                   # rank 0's files
             paths = input_paths(traffic["inputs"], work)
         argv = job_argv(traffic, dict(cfg, **paths))
@@ -226,7 +249,9 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
         mark = (torch.profiler.record_function if trace
                 else lambda _name: contextlib.nullcontext())
         errors, ends = [], []
-        with Spy(kind.SPY if lead else None, seed) as spy, recorder:
+        returns = getattr(kind, "RETURNS", None)
+        with Spy(kind.SPY if lead else None, seed, returns) as spy, \
+                recorder:
             ranks.go(True)                     # the inputs are written
             _ok, err = run_job(main, argv, out_path("warm"),
                                device)                  # warm-up: set-up
@@ -240,6 +265,7 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
             with mark("window"):
                 while ranks.go(not ends or ends[-1] - t_first < seconds):
                     i = len(ends)
+                    spy.job_start()
                     with mark("job:" + traffic["tool"]):
                         _ok, err = run_job(main, argv,
                                            out_path("job%d" % i), device)
@@ -272,8 +298,9 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
                 texts.append(f.read())
         spans = ([s for s in recorder.spans if s[1] >= t_first]
                  if trace else [])
-        port_out = kind.port_output(spy.kept) if spy.kept is not None \
-            else None
+        port_out = (None if spy.kept is None
+                    else kind.port_output(spy.kept) if returns is None
+                    else kind.port_output(spy.kept, spy.kept_returned))
         del spy
         if prof is not None:
             window_us, device_ev, marks = read_trace(prof)
@@ -282,7 +309,7 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
             torch.cuda.empty_cache()
 
         # the output check: the plain reference, after the window
-        want = kind.expected(inputs, cfg, device)
+        want = kind.expected(inputs, cfg, device, argv)
         numbers = (kind.numbers(port_out, texts, want) if port_out is not None
                    else dict.fromkeys(kind.LIMITS))    # no job's result seen
         failed = len(errors) + sum(not text_ok(t, want) for t in texts)
@@ -303,7 +330,7 @@ def run_cell(spec, name, seed, seconds, trace, device, t_start, cfg=None,
         else:
             rates = {m["name"]: m for m in spec.metrics("end_to_end", cell)}
             metrics = {traffic["rate"]: {
-                "value": bases * jobs / span / 1e6,
+                "value": work_bases * jobs / span / 1e6,
                 "unit": rates[traffic["rate"]]["unit"]},
                 "setup_s": {"value": t_first - t_start, "unit": "s"}}
             result["metrics"] = metrics

@@ -5,8 +5,8 @@ what a kernel happens to allocate or read again).
 
 The arithmetic follows the port's probes (``probes/_timing.bound_ms``,
 ``probe_scan_compact.scan_compact_bytes``, ``probe_lookup.lookup_bytes``,
-``probe_route.route_bytes``), copied here so that a change to the program
-cannot move the yardstick."""
+``probe_route.route_bytes``, ``probe_overlaps.overlap_bytes``), copied
+here so that a change to the program cannot move the yardstick."""
 
 # NVIDIA H100 SXM, published: 3.35 TB/s of HBM3 at the full 700 W limit
 HBM_BYTES_S = 3.35e12
@@ -40,3 +40,11 @@ def share_pct(n_bytes, device_s):
     if not device_s:
         return None
     return 100.0 * n_bytes / HBM_BYTES_S / device_s
+
+
+def overlap_bytes(rows, pairs):
+    """modasm's phase-1 self-join: each hit row in once (read, hit index
+    and mod as 4 bytes each, strand, copy-1 and first-occurrence flags as
+    one byte each: 15 bytes), each distinct candidate pair out once
+    (four int64: key, count, strand agreement, first rank)."""
+    return rows * 15 + pairs * 32

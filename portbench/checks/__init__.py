@@ -4,9 +4,14 @@
 - ``SPY``: (module, function, argument) of the port whose argument the
   harness keeps for one job of the window, drawn from the seed (the
   object that holds the job's result);
-- ``port_output(kept)``: numpy copies of what is compared in that object;
-- ``expected(inputs, cfg, device, kmer_bits)``: the plain reference's
-  result for the job's inputs (``kmer_bits`` 32: the control);
+- ``RETURNS`` (where the module has it): (module, qualified name) of a
+  second function of the port, whose return values in the kept job, call
+  by call, the harness keeps too;
+- ``port_output(kept)``, or ``port_output(kept, returned)`` with
+  ``RETURNS``: numpy copies of what is compared;
+- ``expected(inputs, cfg, device, argv, kmer_bits)``: the plain
+  reference's result for the job's inputs and argv (``kmer_bits`` 32: the
+  control);
 - ``as_port(want)``: a reference result in the form ``port_output`` gives,
   so that the control can stand in the program's place;
 - ``LIMITS`` and ``numbers(port, texts, want)``: each number compared,

@@ -17,8 +17,9 @@ def port_output(ms):
             "info": np.array(ms.info[1:n + 1])}
 
 
-def expected(inputs, cfg, device, kmer_bits=64):
-    return build_ref.build(inputs["reads"], cfg, device, kmer_bits)
+def expected(inputs, cfg, device, _argv, kmer_bits=64):
+    return build_ref.build(inputs["reads"], cfg, device, kmer_bits,
+                           inputs["read_lens"])
 
 
 def as_port(want):

@@ -20,7 +20,7 @@ def port_output(args):
             "sidx": np.array(sidx)}
 
 
-def expected(inputs, cfg, device, kmer_bits=64):
+def expected(inputs, cfg, device, _argv, kmer_bits=64):
     return map_ref.modmap(inputs["genome"], inputs["reads"], cfg, device,
                           kmer_bits)
 

@@ -25,14 +25,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def control_numbers(spec, name, seed, device, cfg=None):
     """{number: value} the cell's check reads for the control on ``seed``,
     and the limits."""
-    from bench_data import make_inputs
+    from bench_data import input_paths, make_inputs
+    from bench_harness import job_argv
     cell = spec.cell(name)
     cfg = spec.config(cell) if cfg is None else cfg
-    kind = importlib.import_module(
-        "checks." + spec.traffic(cell)["check"])
-    inputs = make_inputs(cfg, seed)
-    want = kind.expected(inputs, cfg, device)
-    low = kind.expected(inputs, cfg, device, kmer_bits=32)
+    traffic = spec.traffic(cell)
+    kind = importlib.import_module("checks." + traffic["check"])
+    inputs = make_inputs(cfg, seed, traffic)
+    argv = job_argv(traffic, dict(cfg, **input_paths(traffic["inputs"],
+                                                     ".")))
+    want = kind.expected(inputs, cfg, device, argv)
+    low = kind.expected(inputs, cfg, device, argv, kmer_bits=32)
     return kind.numbers(kind.as_port(low), ["\n".join(low["lines"])],
                         want), kind.LIMITS
 

@@ -41,24 +41,38 @@ def summary_lines(k, w, seed, bits, depth, info):
     return out + [head + " total count %d" % tot, line]
 
 
-def build(reads, cfg, device, kmer_bits=64):
-    """The expected table and text of one build job on ``reads`` ([n, L]
-    uint8 codes): {"kmers", "depth", "info" (numpy, in id order),
-    "lines", "rows" (positions emitted), "bases"}.  ``kmer_bits`` 32
-    computes the control: the k-mers counted by their low 32 bits."""
-    k, w, seed, bits = cfg["k"], cfg["w"], cfg["hash_seed"], cfg["table_bits"]
-    f1, _f2 = hash_factors(seed)
-    _read, _pos, km = emit_reads(reads, k, w, f1, device)
-    if kmer_bits == 32:
-        km = km & np.uint64(0xFFFFFFFF)
-    kmers, counts, _ids = first_seen(km)
+def table(reads, cfg, device, kmer_bits=64, lens=None):
+    """The table of ``reads`` ([n, L] uint8 codes, each ``lens[i]`` long):
+    per emitting position (stream order) the read, the position and the
+    canonical k-mer (u64); the distinct k-mers in order of first
+    occurrence, their depths and copy flags, and each position's id (1 +
+    its k-mer's rank).  ``kmer_bits`` 32 keys the table by the k-mers' low
+    32 bits (the control)."""
+    f1, _f2 = hash_factors(cfg["hash_seed"])
+    read, pos, km = emit_reads(reads, cfg["k"], cfg["w"], f1, device, lens)
+    key = km & np.uint64(0xFFFFFFFF) if kmer_bits == 32 else km
+    kmers, counts, ids = first_seen(key)
     depth = np.minimum(counts, 0xFFFF).astype(np.uint16)
-    info = copy_flags(depth, cfg["copy_thresholds"])
+    return {"read": read, "pos": pos, "km": km, "kmers": kmers,
+            "depth": depth, "info": copy_flags(depth, cfg["copy_thresholds"]),
+            "ids": ids}
+
+
+def build(reads, cfg, device, kmer_bits=64, lens=None):
+    """The expected table and text of one build job on ``reads`` ([n, L]
+    uint8 codes, each ``lens[i]`` long, all L where None): {"kmers",
+    "depth", "info" (numpy, in id order), "lines", "rows" (positions
+    emitted), "bases"}.  ``kmer_bits`` 32 computes the control: the k-mers
+    counted by their low 32 bits."""
+    k, w, seed, bits = cfg["k"], cfg["w"], cfg["hash_seed"], cfg["table_bits"]
+    t = table(reads, cfg, device, kmer_bits, lens)
     n, L = reads.shape
+    total = n * L if lens is None else int(lens.sum())
     lines = ["SH k %d  w/m %d  s %d" % (k, w, seed)]
     lines.append("added %d sequences total length %d total hashes %d, new "
-                 "max %d" % (n, n * L, len(km), len(kmers)))
-    lines += summary_lines(k, w, seed, bits, depth, np.zeros_like(info))
-    lines += summary_lines(k, w, seed, bits, depth, info)
-    return {"kmers": kmers, "depth": depth, "info": info, "lines": lines,
-            "rows": len(km), "bases": n * L}
+                 "max %d" % (n, total, len(t["km"]), len(t["kmers"])))
+    lines += summary_lines(k, w, seed, bits, t["depth"],
+                           np.zeros_like(t["info"]))
+    lines += summary_lines(k, w, seed, bits, t["depth"], t["info"])
+    return {"kmers": t["kmers"], "depth": t["depth"], "info": t["info"],
+            "lines": lines, "rows": len(t["km"]), "bases": total}

@@ -76,14 +76,22 @@ def emit_rows(codes, k, w, factor1):
     return row, pos, torch.where(is_f, fwd, rc)[row, pos]
 
 
-def emit_reads(reads, k, w, factor1, device, block_rows=2048):
-    """The modimizers of a read set held as a [n, L] uint8 array of equal
-    reads, in stream order, by blocks of rows on ``device``: numpy (read,
-    position in the read, canonical k-mer as u64)."""
+def emit_reads(reads, k, w, factor1, device, lens=None, block_rows=2048):
+    """The modimizers of a read set held as a [n, L] uint8 array, each read
+    ``lens[i]`` bases long (all L where ``lens`` is None; the rest of a row
+    is padding), in stream order, by blocks of rows on ``device``: numpy
+    (read, position in the read, canonical k-mer as u64)."""
     out = [[], [], []]
     for s in range(0, len(reads), block_rows):
-        c = torch.from_numpy(reads[s:s + block_rows]).to(device).long()
+        block = reads[s:s + block_rows]
+        if lens is not None:
+            n = lens[s:s + block_rows]
+            block = block[:, :int(n.max())]
+        c = torch.from_numpy(np.ascontiguousarray(block)).to(device).long()
         row, pos, km = emit_rows(c, k, w, factor1)
+        if lens is not None:                # k-mers inside their read
+            keep = pos + k <= torch.from_numpy(n).to(device)[row]
+            row, pos, km = row[keep], pos[keep], km[keep]
         out[0].append((row + s).cpu().numpy())
         out[1].append(pos.cpu().numpy())
         out[2].append(km.cpu().numpy().view(np.uint64))

@@ -56,3 +56,37 @@ def test_fasta_files_hold_the_codes(tmp_path, spec):
     g = open(paths["genome"], "rb").read().split(b"\n")
     assert g[0] == b">" + cfg["genome_name"].encode()
     assert len(g[1]) == cfg["genome_len"]
+
+
+def test_spread_reads_keep_every_seeds_lengths(spec, tmp_path):
+    cell = spec.cell("ecoli_hifi30x.asm")
+    traffic = spec.traffic(cell)
+    spread = dict(traffic["read_lengths"], inverted=0.05)
+    traffic = dict(traffic, read_lengths=spread)
+    cfg = tiny(spec.config(cell), n_reads=200, read_len=15_000,
+               genome_len=100_000)
+    a, b = make_inputs(cfg, 2 ** 33 + 5, traffic), make_inputs(cfg, 9,
+                                                               traffic)
+    for x in (a, b):
+        lens = x["read_lens"]
+        assert lens.min() >= spread["min"] and lens.max() <= spread["max"]
+        assert x["reads"].shape == (200, lens.max())
+        # the padding is zeros; every seed has the same lengths
+        pad = np.arange(x["reads"].shape[1]) >= lens[:, None]
+        assert not x["reads"][pad].any()
+        # the inverted duplicates: the second half folds back on the first
+        folded = 0
+        for i, n in enumerate(lens):
+            r = x["reads"][i, :n]
+            r = r if i % cfg["rc_every"] != cfg["rc_every"] - 1 \
+                else 3 - r[::-1]
+            half = (n + 1) // 2
+            folded += np.array_equal(r[half:], (3 - r[:half][::-1])[:n - half])
+        assert folded == 10
+    assert np.array_equal(np.sort(a["read_lens"]), np.sort(b["read_lens"]))
+    assert not np.array_equal(a["read_lens"], b["read_lens"])
+    assert abs(a["read_lens"].mean() / cfg["read_len"] - 1) < 0.05
+    assert np.array_equal(make_inputs(cfg, 9, traffic)["reads"], b["reads"])
+    paths = write_inputs(a, cfg, ["reads"], str(tmp_path))
+    seqs = open(paths["reads"], "rb").read().split(b"\n")[1::2]
+    assert [len(q) for q in seqs] == a["read_lens"].tolist()
