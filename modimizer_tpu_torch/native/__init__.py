@@ -156,6 +156,10 @@ def _declare(L):
     L.rs_hits_from_scan.restype = c.c_int64
     L.rs_hits_from_scan.argtypes = [i64p, u8p, u32p, c.c_int64, i64p,
                                     c.c_int64, u32p, u16p, i32p, i32p, u16p]
+    L.rs_overlap_inputs.restype = c.c_int64
+    L.rs_overlap_inputs.argtypes = [u32p, i64p, c.c_int64, u8p, u16p,
+                                    c.c_int64, u32p, u32p, u32p, u32p, u8p,
+                                    u8p, i32p]
     L.sh_rid_rpos.restype = None
     L.sh_rid_rpos.argtypes = [i64p, c.c_int64, i64p, c.c_int64, i64p, i64p]
     i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")

@@ -358,6 +358,54 @@ extern "C" I64 rs_hits_from_scan(const I64 *gpos, const U8 *isF,
   return o;
 }
 
+// findOverlaps phase 1's host preparation (parallel/overlaps.py
+// overlap_inputs) in one forward pass over the hit rows, which arrive in
+// (read, position) order.  Per row: read x, position j, mod h, strand,
+// isC1 (a copy-1 mod, (info & 3) == 1) and firstC1 (its first row in the
+// read, modasm.c:335-338), both masked where the mod's depth saturated
+// (0xFFFF: no inv list, modasm.c:269); per read nRepeat, the copy-1 rows
+// after the first of their mod, unmasked.  stamp[h] == x + 1 marks a mod
+// seen in read x already; x only grows, so the stamps are never cleared.
+// Returns the largest mod id (-1 with no row); where it is past msMax the
+// pass returns before writing anything.
+extern "C" I64 rs_overlap_inputs(const U32 *hits, const I64 *hitOff,
+                                 I64 nReads, const U8 *info,
+                                 const U16 *depth, I64 msMax, U32 *x, U32 *j,
+                                 U32 *h, U32 *strand, U8 *isC1, U8 *firstC1,
+                                 int32_t *nRepeat) {
+  const I64 n = hitOff[nReads];
+  U32 hMax = 0;
+  for (I64 i = 0; i < n; ++i) hMax = std::max(hMax, hits[i] & TOPMASK);
+  if (n && (I64)hMax > msMax) return hMax;
+  std::vector<U32> stamp((size_t)hMax + 1, 0);
+  for (I64 r = 0; r < nReads; ++r) {
+    const U32 tag = (U32)r + 1;
+    const I64 o = hitOff[r];
+    int32_t rep = 0;
+    for (I64 i = o; i < hitOff[r + 1]; ++i) {
+      const U32 m = hits[i] & TOPMASK;
+      x[i] = (U32)r;
+      j[i] = (U32)(i - o);
+      h[i] = m;
+      strand[i] = hits[i] >> 31;
+      const U8 ok = depth[m] != U16MAXV;
+      U8 c1 = (info[m] & 3) == 1, first = 0;
+      if (c1) {
+        if (stamp[m] == tag) {
+          ++rep;
+        } else {
+          stamp[m] = tag;
+          first = 1;
+        }
+      }
+      isC1[i] = c1 & ok;
+      firstC1[i] = first & ok;
+    }
+    nRepeat[r] = rep;
+  }
+  return n ? (I64)hMax : -1;
+}
+
 // Map ascending global emit positions to (read id, read-relative pos) in
 // one walk — replaces numpy searchsorted + two np.repeat temporaries in
 // ModimizerScanner.scan_batch.

@@ -30,21 +30,21 @@ group); the pairs here are the ones that sweep keeps once it is wide
 enough, so the result is the same for any group size.  ``dmax`` and
 ``pair_cap`` stay in the signatures for the API and do not bound anything.
 
-The host preparation (first occurrences, n_repeat, the depth gate) and the
-final candidate order are the JAX package's code.  Hits carry TOPBIT
-(strand) and are masked on the host; x < 2^31 keeps every pair key
-positive in int64, and the rank keeps the JAX packing (j << 20) | k.
+The host preparation (first occurrences, n_repeat, the depth gate) is one
+native pass, ``overlap_inputs``; the final candidate order is the JAX
+package's code.  Hits carry the strand in their top bit and are masked on
+the host; x < 2^31 keeps every pair key positive in int64, and the rank
+keeps the JAX packing (j << 20) | k.
 """
 
 import numpy as np
 import torch
 
 from .. import _build
+from ..native import lib as native_lib
 from ..utils import profiling
 from .mesh import as_device
 
-TOPBIT = np.uint32(0x80000000)
-TOPMASK = np.uint32(0x7FFFFFFF)
 HNONE = 0xFFFFFFFF             # hkey of a row that is in no group
 _I64_MAX = (1 << 63) - 1
 # distinct partners a read keeps in the join's shared-memory table; a read
@@ -289,37 +289,33 @@ def overlap_pairs_ref(xs, js, hs, strand, is_c1, firstc1, *, dmax=64,
 
 
 def overlap_inputs(readset):
-    """The host preparation of overlap_counts (the JAX package's code):
-    per hit row (x, j, h, strand, is_c1_cnt, firstc1_cnt), and per read
-    n_repeat and bad_repeat."""
+    """The host preparation of overlap_counts, one native pass over the hit
+    rows (``rs_overlap_inputs``, native/modasm_native.cpp): per hit row
+    (x, j, h, strand uint32; is_c1_cnt, firstc1_cnt bool), per read
+    n_repeat (int32) and bad_repeat.  firstc1 is the first row of a copy-1
+    mod in its read (modasm.c:335-338), n_repeat counts the copy-1 rows
+    after it; mods of saturated depth have no inv list (rs_inv_build,
+    modasm.c:269), so both row masks leave them out, n_repeat not.  A mod
+    id past the modset's arrays raises IndexError."""
     hits = np.ascontiguousarray(readset.hits, np.uint32)
-    off = np.asarray(readset.hit_off, np.int64)
-    n_reads = len(off) - 1
-    info = readset.ms.info
-    h = hits & TOPMASK
-    strand = (hits >> np.uint32(31)).astype(np.uint32)
-    x = np.repeat(np.arange(n_reads, dtype=np.uint32), np.diff(off))
-    j = (np.arange(len(hits), dtype=np.uint32)
-         - np.repeat(off[:-1], np.diff(off)).astype(np.uint32))
-    is_c1 = (info[h] & 3) == 1
-    # saturated-depth mods have no inv list (rs_inv_build / modasm.c:269)
-    # and their inv walk is skipped on the x side too — exclude them from
-    # COUNTING everywhere (they still participate in hmap/dup semantics)
-    depth_ok = readset.ms.depth[h] != np.uint16(0xFFFF)
-
-    # first-occurrence-within-read of each copy1 mod (modasm.c:335-338):
-    # order (x, j) within (x, h) groups picks the smallest j as first
-    o = np.lexsort((j, h, x))
-    xo, ho, c1o = x[o], h[o], is_c1[o]
-    same = np.concatenate([[False], (xo[1:] == xo[:-1]) & (ho[1:] == ho[:-1])])
-    firstc1 = np.zeros(len(hits), bool)
-    firstc1[o] = (~same) & c1o
-    dup_c1 = np.zeros(len(hits), bool)
-    dup_c1[o] = same & c1o
-    n_repeat = np.bincount(x[dup_c1], minlength=n_reads).astype(np.int32)
-    bad_repeat = n_repeat > 0
-    return ((x, j, h, strand, is_c1 & depth_ok, firstc1 & depth_ok),
-            n_repeat, bad_repeat)
+    off = np.ascontiguousarray(readset.hit_off, np.int64)
+    info = np.ascontiguousarray(readset.ms.info, np.uint8)
+    depth = np.ascontiguousarray(readset.ms.depth, np.uint16)
+    n, n_reads = len(hits), len(off) - 1
+    if n_reads < 0 or off[0] != 0 or off[-1] != n or (np.diff(off) < 0).any():
+        raise ValueError("overlap_inputs: hit_off must rise from 0 to %d" % n)
+    ms_max = min(len(info), len(depth)) - 1
+    x, j, h, strand = (np.empty(n, np.uint32) for _ in range(4))
+    is_c1, firstc1 = np.empty(n, bool), np.empty(n, bool)
+    n_repeat = np.empty(n_reads, np.int32)
+    h_max = native_lib().rs_overlap_inputs(
+        hits, off, n_reads, info, depth, ms_max, x, j, h, strand,
+        is_c1.view(np.uint8), firstc1.view(np.uint8), n_repeat)
+    if h_max > ms_max:
+        raise IndexError("overlap_inputs: mod %d past the modset's %d "
+                         "entries" % (h_max, ms_max + 1))
+    profiling.count("overlaps.prep_rows", n)
+    return (x, j, h, strand, is_c1, firstc1), n_repeat, n_repeat > 0
 
 
 def overlap_counts(readset, dmax: int = 64, pair_cap: int = None,
@@ -336,7 +332,7 @@ def overlap_counts(readset, dmax: int = 64, pair_cap: int = None,
     order after its stable sort (modasm.c:300-304,353) — plus per-read
     n_repeat and bad_repeat.  Stage timers (MODIMIZER_STAGES=1):
     overlaps.prep, overlaps.device (upload, overlap_pairs, download),
-    overlaps.order."""
+    overlaps.order; counter overlaps.prep_rows (the hit rows prepared)."""
     if device is None:
         device = getattr(readset, "device", None)
     dev = as_device(device, "overlap_counts")
