@@ -2282,7 +2282,7 @@ def config3_seeds(small, work, rng):
     ref.fasta_read(ref_fa, io.StringIO(), is_add=True, device=dev)
     batch, _t = seqio.read_seq_file(reads_fa, seqio.dna2index_n0(),
                                     is_qual=False, want_ids=True)
-    scanner = ModimizerScanner(ms.hasher, want_isf=False, device=dev)
+    scanner = ModimizerScanner(ms.hasher, device=dev)
     kmers, rid, rpos, _f = scanner.scan_batch(batch)
     sidx = np.ascontiguousarray(modmap._lookup(ref, scanner, kmers),
                                 np.uint32)

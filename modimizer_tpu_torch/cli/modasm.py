@@ -100,7 +100,7 @@ def ref_flag(rs: Readset, filename, out, device=None):
         die("failed to open ref seq file %s", filename)
     batch, _t = seqio.read_seq_file(filename, seqio.dna2index_n0(),
                                     is_qual=False, want_ids=False)
-    scanner = ModimizerScanner(rs.ms.hasher, want_isf=False, device=device)
+    scanner = ModimizerScanner(rs.ms.hasher, device=device)
     kmers, _rid, rpos, _f = scanner.scan_batch(batch)
     sidx = rs.ms.find_batch(kmers)
     found = sidx != 0

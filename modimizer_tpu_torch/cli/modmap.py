@@ -100,7 +100,7 @@ def query_process(ref: Reference, filename, out, is_verbose, device=None,
                                             is_qual=False, want_ids=True)
     except (IOError, ValueError, FileNotFoundError):
         die("failed to read query sequence file %s", filename)
-    scanner = ModimizerScanner(ms.hasher, want_isf=False, device=device)
+    scanner = ModimizerScanner(ms.hasher, device=device)
     with profiling.span("map.scan"):
         kmers, rid, rpos, _f = scanner.scan_batch(batch)
     with profiling.span("map.lookup"):

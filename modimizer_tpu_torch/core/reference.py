@@ -60,8 +60,7 @@ class Reference:
             self.len.set(_id, np.uint32(batch.lengths[i]))
         tot_len = int(batch.lengths.sum())
 
-        scanner = ModimizerScanner(self.ms.hasher, want_isf=False,
-                                   device=device)
+        scanner = ModimizerScanner(self.ms.hasher, device=device)
         with profiling.span("ref.scan"):
             kmers, rid, rpos, _isF = scanner.scan_batch(batch)
         with profiling.span("ref.index"):

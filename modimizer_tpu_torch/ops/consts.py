@@ -25,9 +25,6 @@ def scan_bo(w: int, blk: int = BLK_COMPACT) -> int:
     """Output rows per blk-position compaction block: mean + 6 sigma of the
     Binomial(blk, 1/w) emit count (overflow is flagged and the caller
     rescans)."""
-    forced = os.environ.get("MODIMIZER_BO")
-    if forced:                     # ablation override (8-row granules)
-        return int(min(blk, max(8, (int(forced) + 7) // 8 * 8)))
     mean = max(1, blk // w)
     # ceil the sigma so the margin stays >= 6 sigma at small blk
     want = mean + 6 * max(1, math.isqrt(mean - 1) + 1)

@@ -3,11 +3,12 @@ stream-order prefix (port of ``modimizer_tpu/ops/device_scan.py``).
 
 ``densify`` is the CUDA kernel ``csrc/densify.cu`` (contract of the JAX
 package's ``_densify_cols_search``); ``densify_ref`` is its plain PyTorch
-version.  ``scan_kmers_body`` is ``_scan_kmers_body`` (the ``modutils -a``
-chunk) and ``scan_chunk`` is ``_scan_chunk`` (the ``(pos << 1) | isF`` meta
-path of ``scan_stream`` and ``modutils -P``).  Validity always rides as
-dense bit-words; the JAX package's sparse-exception upload and its
-``lax.scan`` chunk grouping are not ported.
+version.  ``scan_chunk`` is the scanner's one chunk program: with
+``with_meta`` it is the JAX package's ``_scan_chunk`` (the ``(pos << 1) |
+isF`` meta path of ``scan_stream``), without it ``_scan_chunk_kmers`` (k-mers
+alone, ``modutils -a``).  Validity always rides as dense bit-words, the
+chunk's slice of ``pk_valid_words``; the JAX package's prefix mask, its
+sparse-exception upload and its ``lax.scan`` chunk grouping are not ported.
 """
 
 import torch
@@ -97,36 +98,15 @@ def _total(n_emit, overflow, cap):
         torch.int32)
 
 
-def scan_kmers_body(sw, vbits, *, k, w, factor1, bo, cap):
-    """Kmers-only chunk for table builds: (dense kmers int64 [cap] in exact
-    stream order, total int32 scalar; total < 0 flags overflow)."""
+def scan_chunk(sw, vbits, *, k, w, factor1, bo, cap, with_meta):
+    """One chunk of C = 32 (len(sw) - 2) positions, those whose bit of
+    ``vbits`` is set live: (dense k-mers int64 [cap] in exact stream order,
+    dense meta int32 [cap] = (pos << 1) | isF or None without
+    ``with_meta``, total int32 scalar; total < 0 flags overflow)."""
     C = 32 * (sw.shape[0] - 2)
-    out_k, _none, cnt, n_emit, overflow = scan_compact(
-        sw, vbits, k=k, w=w, factor1=factor1, C=C, bo=bo, meta_isf=False,
-        with_meta=False)
-    cap = min(cap, out_k.shape[0])
-    dk, _ = densify(out_k, None, cnt, bo=bo, cap=cap)
-    return dk, _total(n_emit, overflow, cap)
-
-
-def prefix_valid_words(m: int, C: int, device):
-    """int64 [C/64] bit-words with exactly positions [0, m) set."""
-    vb = torch.zeros(C // 64, dtype=torch.int64, device=device)
-    nfull, rem = divmod(max(0, min(m, C)), 64)
-    vb[:nfull] = -1
-    if rem:
-        vb[nfull] = (1 << rem) - 1
-    return vb
-
-
-def scan_chunk(sw, m: int, *, k, w, factor1, bo, cap):
-    """Meta chunk of C = 32 (len(sw) - 2) positions with the first m live:
-    (dense kmers int64 [cap], dense meta int32 [cap] = (pos << 1) | isF,
-    total int32 scalar; total < 0 flags overflow)."""
-    C = 32 * (sw.shape[0] - 2)
-    vbits = prefix_valid_words(m, C, sw.device)
     out_k, out_meta, cnt, n_emit, overflow = scan_compact(
-        sw, vbits, k=k, w=w, factor1=factor1, C=C, bo=bo, meta_isf=True)
+        sw, vbits, k=k, w=w, factor1=factor1, C=C, bo=bo,
+        meta_isf=with_meta, with_meta=with_meta)
     cap = min(cap, out_k.shape[0])
     dk, dm = densify(out_k, out_meta, cnt, bo=bo, cap=cap)
     return dk, dm, _total(n_emit, overflow, cap)

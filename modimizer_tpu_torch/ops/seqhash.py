@@ -4,11 +4,18 @@
 Chunking, the carry buffer of ``scan_kmers_batches``, ``bo``/``cap`` and the
 three overflow tiers (normal ``bo``, a 4x-wide device retry, an exact native
 host rescan) are the JAX scanner's, so both packages produce the same rows
-in the same stream order.  Per chunk: pack the 2-bit stream and the validity
-bit-words into pinned host tensors, upload them with ``non_blocking``
-copies, run ``scan_compact`` and ``densify``, queue a ``non_blocking``
-download of the dense rows and the total into pinned memory, and record a
-CUDA event.  A chunk is read only after its event has completed, while up to
+in the same stream order.
+
+``scan_kmers``, ``scan_kmers_batches`` and ``scan_stream`` feed one chunk
+pipeline (``_pipeline``); they differ only in where a chunk's codes and read
+offsets come from (the whole stream, or the carry buffer) and in whether a
+chunk yields k-mers alone or k-mers with positions and isF.  Per chunk:
+``put_chunk`` packs the 2-bit stream and the chunk's validity bit-words into
+one pinned host tensor and uploads it with one ``non_blocking`` copy;
+``scan_chunk`` runs ``scan_compact`` and ``densify``, so no row whose k-mer
+crosses a read boundary leaves the card; a ``non_blocking`` download of the
+dense rows and the total into pinned memory is queued behind a CUDA event.
+A chunk is read only after its event has completed, while up to
 ``max_inflight`` later chunks are already queued behind it.
 
 Device policy (no hidden fallback):
@@ -31,20 +38,28 @@ from .. import require_cuda
 from ..native import lib as native_lib
 from ..utils import profiling
 from .consts import BLK_COMPACT, BLOCK, scan_bo
-from .device_scan import scan_chunk, scan_kmers_body
+from .device_scan import scan_chunk
 from .scan_kernel import kernel_params
 
-# 32 Mbase per device dispatch (the JAX scanner's MODIMIZER_CHUNK)
-DEFAULT_CHUNK = int(os.environ.get("MODIMIZER_CHUNK", str(1 << 25)))
+DEFAULT_CHUNK = 1 << 25     # 32 Mbase per device dispatch
 
 
-def _validity_filter(gpos: np.ndarray, offsets: np.ndarray, k: int):
-    """Keep emitted positions whose k-mer lies inside one read."""
-    rid = np.searchsorted(offsets, gpos, side="right") - 1
-    ok = (rid >= 0) & (gpos + k <= offsets[np.minimum(rid + 1,
-                                                      len(offsets) - 1)])
-    ok &= rid < len(offsets) - 1
-    return ok, rid
+def put_chunk(seg, vwords, device):
+    """Pack a chunk's codes into 2-bit words and upload them with its
+    validity words: one host tensor (pinned for a CUDA card), one
+    ``non_blocking`` copy.  ``seg`` holds the chunk's C + k - 1 codes (fewer
+    at the stream's end), ``vwords`` its C/64 u64 validity words; returns
+    (sw int64 [C/32 + 2], vbits int64 [C/64]) on ``device``."""
+    nv = len(vwords)
+    nw = 2 * nv + 2
+    host = torch.empty(nw + nv, dtype=torch.int64,
+                       pin_memory=device.type == "cuda")
+    h = host.numpy()
+    native_lib().pk_pack2(np.ascontiguousarray(seg).view(np.uint8),
+                          len(seg), h[:nw].view(np.uint64), nw)
+    h[nw:] = vwords.view(np.int64)
+    words = host.to(device, non_blocking=True)
+    return words[:nw], words[nw:]
 
 
 def first_encounter_unique(kmers: np.ndarray):
@@ -63,7 +78,7 @@ class ModimizerScanner:
     (kmers, global positions, isF) in exact stream order."""
 
     def __init__(self, sh, chunk: int = DEFAULT_CHUNK, device=None,
-                 host: bool = None, want_isf: bool = True):
+                 host: bool = None):
         if host is None:
             host = os.environ.get("MODIMIZER_SCAN") == "host"
         if device is not None:
@@ -80,7 +95,6 @@ class ModimizerScanner:
         self.cap = int(min((self.chunk // BLK_COMPACT) * self.bo,
                            max(4096, self.chunk // sh.w
                                + max(self.chunk // (8 * sh.w), 65536))))
-        self.want_isf = want_isf      # kept as the JAX scanner keeps it
         self.max_inflight = 4
         self.host = bool(host)        # every scan on the native host scan
         self.used_device = False      # set per scan call
@@ -154,32 +168,87 @@ class ModimizerScanner:
                                      len(offsets) - 1, rid, rpos)
         return kmers, rid, rpos, isF
 
-    # ---- host <-> device ----
+    # ---- the chunk pipeline ----
 
-    def _host_buf(self, n):
-        return torch.empty(n, dtype=torch.int64,
-                           pin_memory=self.device.type == "cuda")
+    def _require_device(self):
+        if self.device is None:
+            raise RuntimeError(
+                "ModimizerScanner: this scanner was made for the host scan "
+                "alone (MODIMIZER_SCAN=host or host=True) and holds no "
+                "CUDA device for a device scan")
+        self.used_device = True
 
-    def _put_sw(self, seg):
-        """2-bit pack a segment (C + k - 1 codes) into C/32 + 2 words on
-        the device."""
-        nw = self.chunk // 32 + 2
-        host = self._host_buf(nw)
-        native_lib().pk_pack2(np.ascontiguousarray(seg).view(np.uint8),
-                              len(seg), host.numpy().view(np.uint64), nw)
-        return host.to(self.device, non_blocking=True)
+    def _stream_chunks(self, codes, offsets):
+        """The chunks of a whole stream: its validity words computed once,
+        each chunk given its slice.  A chunk is (stream position, codes,
+        offsets, its start in codes, its validity words)."""
+        C = self.chunk
+        n = len(codes)
+        with profiling.span("scan.validity"):
+            vwords = np.empty(max(1, -(-n // C)) * C // 64, np.uint64)
+            native_lib().pk_valid_words(offsets, len(offsets) - 1, n,
+                                        self.sh.k, vwords, len(vwords))
+        for s in range(0, n, C):
+            yield s, codes, offsets, s, vwords[s // 64:(s + C) // 64]
 
-    def _put_words(self, words):
-        host = self._host_buf(len(words))
-        host.numpy()[:] = words.view(np.int64)
-        return host.to(self.device, non_blocking=True)
+    def _batch_chunks(self, batches):
+        """The chunks of a stream that arrives as (codes, offsets) batches
+        of whole reads: a carry buffer holds the codes from the next
+        chunk's start on, so chunk boundaries are those of the stream in
+        one piece.  A chunk's validity words come from its window of the
+        read offsets (clipped to it: see _rescan_rows)."""
+        L = native_lib()
+        k = self.sh.k
+        C = self.chunk
+        halo = k - 1
+        NWB = (C + halo + 63) // 64      # validity words of a whole window
+        buf = np.zeros(0, np.uint8)      # codes from stream position s on
+        offs = np.zeros(1, np.int64)     # read offsets in buf's coordinates
+        s = 0
+        it = iter(batches)
+        eof = False
+        while True:
+            while not eof and len(buf) < C + halo:
+                try:
+                    codes_b, offs_b = next(it)
+                except StopIteration:
+                    eof = True
+                    break
+                cb = np.ascontiguousarray(codes_b).view(np.uint8)
+                ob = np.asarray(offs_b, np.int64)
+                if len(ob) == 0 or ob[-1] != len(cb):
+                    raise ValueError("scan_kmers_batches: batch offsets "
+                                     "must cover whole reads")
+                offs = np.concatenate([offs, ob[1:] + len(buf)])
+                buf = np.concatenate([buf, cb]) if len(buf) else cb
+            if not len(buf):
+                return
+            with profiling.span("scan.validity"):
+                m_win = min(C + halo, len(buf))
+                j = int(np.searchsorted(offs, m_win, side="left"))
+                win = np.ascontiguousarray(np.clip(offs[:j + 1], 0, m_win))
+                vw = np.empty(NWB, np.uint64)
+                L.pk_valid_words(win, len(win) - 1, m_win, k, vw, NWB)
+            yield s, buf, offs, 0, vw[:C // 64]
+            s += C
+            buf = buf[C:]
+            j = max(int(np.searchsorted(offs, C, side="right")) - 1, 0)
+            offs = offs[j:] - C
+
+    def _launch(self, words, with_meta, wide=False):
+        bo, cap = self._wide() if wide else (self.bo, self.cap)
+        kp = self.kp
+        return self._download(scan_chunk(
+            *words, k=kp.k, w=kp.w, factor1=kp.factor1, bo=bo, cap=cap,
+            with_meta=with_meta))
 
     def _download(self, tensors):
         """Queue device->host copies into pinned memory; returns a future
         for _wait.  On the CPU the tensors are already there."""
         if self.device.type != "cuda":
             return tensors, None
-        outs = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        outs = tuple(None if t is None else
+                     torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      .copy_(t, non_blocking=True) for t in tensors)
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
@@ -192,36 +261,51 @@ class ModimizerScanner:
             ev.synchronize()
         return outs
 
-    # ---- kmers-only chunks (modutils -a) ----
+    def _pipeline(self, chunks, with_meta):
+        """Scan ``chunks`` on the device, up to ``max_inflight`` queued
+        behind the one being read, and yield each one's rows in stream
+        order: its k-mers (u64), or (k-mers, global positions, isF) with
+        ``with_meta``."""
+        k = self.sh.k
+        pending = []
+        for chunk in chunks:
+            _s, codes, _offsets, at, vw = chunk
+            with profiling.span("scan.pack"):
+                words = put_chunk(codes[at:at + self.chunk + k - 1], vw,
+                                  self.device)
+            with profiling.span("scan.dispatch"):
+                pending.append((chunk, words,
+                                self._launch(words, with_meta)))
+            if len(pending) > self.max_inflight:
+                yield self._drain(*pending.pop(0), with_meta)
+        for entry in pending:
+            yield self._drain(*entry, with_meta)
 
-    def _launch_kmers(self, sw, vb, wide=False):
-        bo, cap = self._wide() if wide else (self.bo, self.cap)
-        kp = self.kp
-        return self._download(scan_kmers_body(
-            sw, vb, k=kp.k, w=kp.w, factor1=kp.factor1, bo=bo, cap=cap))
-
-    def _finish_kmers(self, fut, sw, vb, rescan):
-        """Wait for a chunk and walk the overflow tiers; returns its kmers
-        (u64, stream order)."""
+    def _drain(self, chunk, words, fut, with_meta):
+        """Wait for a chunk and walk the overflow tiers: a wide retry on
+        the device, then the exact host rescan."""
+        s, codes, offsets, at, _vw = chunk
         with profiling.span("scan.download"):
-            dk, tot = self._wait(fut)
+            dk, dm, tot = self._wait(fut)
             tot = int(tot)
             if tot < 0:      # block or cap overflow: retry wide on device
                 self.n_wide += 1
-                dk, tot = self._wait(self._launch_kmers(sw, vb, wide=True))
+                dk, dm, tot = self._wait(self._launch(words, with_meta,
+                                                      wide=True))
                 tot = int(tot)
             if tot < 0:      # still overflowing: exact native host rescan
                 self.n_fallback += 1
-                return rescan()
-            return dk[:tot].numpy().view(np.uint64)
+                kms, pos, isF = self._rescan_rows(
+                    at, min(self.chunk, len(codes) - at), codes, offsets)
+                return (kms, pos + (s - at), isF) if with_meta else kms
+            kms = dk[:tot].numpy().view(np.uint64)
+            if not with_meta:
+                return kms
+            meta = dm[:tot].numpy().view(np.uint32)
+            return (kms, s + (meta >> 1).astype(np.int64),
+                    (meta & 1).astype(bool))
 
-    def _require_device(self):
-        if self.device is None:
-            raise RuntimeError(
-                "ModimizerScanner: this scanner was made for the host scan "
-                "alone (MODIMIZER_SCAN=host or host=True) and holds no "
-                "CUDA device for a device scan")
-        self.used_device = True
+    # ---- the entry points ----
 
     def scan_kmers(self, codes: np.ndarray, offsets: np.ndarray,
                    consumer=None):
@@ -229,199 +313,50 @@ class ModimizerScanner:
         pipelined over chunks.  Returns the concatenated kmers if consumer
         is None, else the total emit count (consumer gets each chunk's
         kmers in order)."""
-        k = self.sh.k
-        n = len(codes)
         codes = np.ascontiguousarray(codes).view(np.uint8)
-        offsets = np.asarray(offsets, np.int64)
+        offsets = np.ascontiguousarray(offsets, np.int64)
         sink = _Sink(consumer)
         if self.host:
             self.used_device = False
             sink(self._scan_host(codes, offsets)[0])
             return sink.result()
         self._require_device()
-        C = self.chunk
-        n_chunks = max(1, -(-n // C))
-        with profiling.span("scan.validity"):
-            vwords = np.empty(n_chunks * C // 64, np.uint64)
-            native_lib().pk_valid_words(offsets, len(offsets) - 1, n, k,
-                                        vwords, len(vwords))
-
-        def drain(entry):
-            s, sw, vb, fut = entry
-            sink(self._finish_kmers(
-                fut, sw, vb,
-                lambda: self._rescan_rows(s, min(C, n - s), codes,
-                                          offsets)[0]))
-
-        pending = []
-        for s in range(0, n, C):
-            with profiling.span("scan.pack"):
-                sw = self._put_sw(codes[s:s + C + k - 1])
-                vb = self._put_words(vwords[s // 64:s // 64 + C // 64])
-            with profiling.span("scan.dispatch"):
-                pending.append((s, sw, vb, self._launch_kmers(sw, vb)))
-            if len(pending) > self.max_inflight:
-                drain(pending.pop(0))
-        for entry in pending:
-            drain(entry)
+        for kms in self._pipeline(self._stream_chunks(codes, offsets),
+                                  False):
+            sink(kms)
         return sink.result()
 
     def scan_kmers_batches(self, batches, consumer=None):
         """Streaming scan_kmers over (codes, offsets) batches of whole reads
         (e.g. io.stream_seq.iter_seq_batches): chunks ride a carry buffer
         across batches, so chunk boundaries, rows and stream order equal one
-        scan_kmers call on the concatenated stream.  Validity is computed
-        per chunk from a clipped offsets window.  Returns total emits
+        scan_kmers call on the concatenated stream.  Returns total emits
         (consumer mode) or the concatenated kmers."""
         self._require_device()
-        L = native_lib()
-        k = self.sh.k
-        C = self.chunk
-        halo = k - 1
-        NWV = C // 64                    # validity words the device reads
-        NWB = (C + halo + 63) // 64      # buffer incl. halo positions
         sink = _Sink(consumer)
-        pending = []
-        buf = np.zeros(0, np.uint8)
-        base = 0                         # absolute stream position of buf[0]
-        offs = np.zeros(1, np.int64)     # absolute read offsets
-        n_in = 0                         # absolute codes ingested
-        eof = False
-        s = 0                            # next chunk start (absolute)
-
-        def win_valid(sa, m_win):
-            j0 = max(int(np.searchsorted(offs, sa, side="right")) - 1, 0)
-            j1 = int(np.searchsorted(offs, sa + m_win, side="left"))
-            oo = np.ascontiguousarray(
-                np.clip(offs[j0:j1 + 1], sa, sa + m_win) - sa)
-            vw = np.zeros(NWB, np.uint64)
-            L.pk_valid_words(oo, len(oo) - 1, m_win, k, vw, NWB)
-            return vw[:NWV]
-
-        def dispatch(sa):
-            seg = buf[sa - base:sa - base + C + halo]
-            with profiling.span("scan.pack"):
-                sw = self._put_sw(seg)
-                vb = self._put_words(win_valid(sa, len(seg)))
-            with profiling.span("scan.dispatch"):
-                return sw, vb, self._launch_kmers(sw, vb)
-
-        def rescan_window(sa):
-            # exact host rescan of the chunk window (clipping argument: see
-            # _rescan_rows)
-            rel = sa - base
-            m = min(C, n_in - sa)
-            seg = np.ascontiguousarray(buf[rel:rel + m + halo])
-            lo = np.clip(offs, sa, sa + len(seg)) - sa
-            kms, pos, _ = self._scan_host(seg, lo)
-            return kms[pos < m]
-
-        def drain(entry):
-            sa, (sw, vb, fut) = entry
-            sink(self._finish_kmers(fut, sw, vb, lambda: rescan_window(sa)))
-
-        it = iter(batches)
-        while True:
-            while not eof and n_in - s < C + halo:
-                try:
-                    codes_b, offs_b = next(it)
-                except StopIteration:
-                    eof = True
-                    break
-                cb = np.ascontiguousarray(codes_b).view(np.uint8)
-                ob = np.asarray(offs_b, np.int64)
-                if len(ob) == 0 or ob[-1] != len(cb):
-                    raise ValueError("scan_kmers_batches: batch offsets "
-                                     "must cover whole reads")
-                offs = np.concatenate([offs, ob[1:] + n_in])
-                buf = np.concatenate([buf, cb])
-                n_in += len(cb)
-            if s >= n_in:
-                break
-            pending.append((s, dispatch(s)))
-            s += C
-            if len(pending) > self.max_inflight:
-                drain(pending.pop(0))
-                # trim consumed bytes; the oldest pending chunk's window
-                # stays resident for its host rescan
-                cut = (pending[0][0] if pending else s) - base
-                if cut > (64 << 20):
-                    buf = buf[cut:]
-                    base += cut
-                    j = max(int(np.searchsorted(offs, base,
-                                                side="right")) - 1, 0)
-                    offs = offs[j:]
-        for entry in pending:
-            drain(entry)
+        for kms in self._pipeline(self._batch_chunks(batches), False):
+            sink(kms)
         return sink.result()
-
-    # ---- meta chunks (scan_stream, modutils -P) ----
 
     def scan_stream(self, codes: np.ndarray, offsets: np.ndarray):
         """codes: uint8/int8 [N] (values 0..3), offsets: int64 [n_reads+1].
         Returns (kmers u64, global positions int64, isF bool) in stream
-        order, read-boundary filtered."""
-        k = self.sh.k
-        n = len(codes)
+        order, of the k-mers that lie inside one read."""
         codes = np.ascontiguousarray(codes).view(np.uint8)
-        offsets = np.asarray(offsets, np.int64)
+        offsets = np.ascontiguousarray(offsets, np.int64)
         if self.host:
             self.used_device = False
             out = self._scan_host(codes, offsets)
             profiling.count("scan.rows", len(out[0]))
             return out
         self._require_device()
-        C = self.chunk
-        kp = self.kp
-        out_k, out_p, out_f = [], [], []
-
-        def launch(sw, m, wide=False):
-            bo, cap = self._wide() if wide else (self.bo, self.cap)
-            return self._download(scan_chunk(
-                sw, m, k=kp.k, w=kp.w, factor1=kp.factor1, bo=bo, cap=cap))
-
-        def drain(entry):
-            s, m, sw, fut = entry
-            with profiling.span("scan.download"):
-                km, meta, total = self._wait(fut)
-                total = int(total)
-                if total < 0:    # block or cap overflow: retry wide
-                    self.n_wide += 1
-                    km, meta, total = self._wait(launch(sw, m, wide=True))
-                    total = int(total)
-                if total < 0:    # still overflowing: exact host rescan
-                    self.n_fallback += 1
-                    kms, gpos, isF = self._rescan_rows(s, m, codes, offsets)
-                else:
-                    kms = km[:total].numpy().view(np.uint64)
-                    meta = meta[:total].numpy().view(np.uint32)
-            if total >= 0:
-                with profiling.span("scan.validity"):
-                    gpos = s + (meta >> 1).astype(np.int64)
-                    isF = (meta & 1).astype(bool)
-                    ok, _rid = _validity_filter(gpos, offsets, k)
-                    kms, gpos, isF = kms[ok], gpos[ok], isF[ok]
-            out_k.append(kms)
-            out_p.append(gpos)
-            out_f.append(isF)
-
-        pending = []
-        for s in range(0, n, C):
-            m = min(C, n - s)
-            with profiling.span("scan.pack"):
-                sw = self._put_sw(codes[s:s + C + k - 1])
-            with profiling.span("scan.dispatch"):
-                pending.append((s, m, sw, launch(sw, m)))
-            if len(pending) > self.max_inflight:
-                drain(pending.pop(0))
-        for entry in pending:
-            drain(entry)
-        if not out_k:
+        parts = list(self._pipeline(self._stream_chunks(codes, offsets),
+                                    True))
+        if not parts:
             return (np.zeros(0, np.uint64), np.zeros(0, np.int64),
                     np.zeros(0, bool))
         with profiling.span("scan.concat"):
-            out = (np.concatenate(out_k), np.concatenate(out_p),
-                   np.concatenate(out_f))
+            out = tuple(np.concatenate(p) for p in zip(*parts))
         profiling.count("scan.rows", len(out[0]))
         return out
 

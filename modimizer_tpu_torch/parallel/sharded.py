@@ -49,6 +49,7 @@ from ..ops.consts import BLK_COMPACT as BLK
 from ..ops.merge import merge_reduce
 from ..ops.route import gather_rows, route_rows
 from ..ops.scan_kernel import kernel_params, scan_compact
+from ..ops.seqhash import put_chunk
 from ..utils import profiling
 from .mesh import as_mesh
 
@@ -269,13 +270,6 @@ class ShardedModsetBuilder:
             self.total_emitted += self.mesh.sum(out[2])
             self.n_replay += 1
 
-    def _put(self, words):
-        """u64 numpy words -> int64 on the device (pinned, non_blocking)."""
-        host = torch.from_numpy(words.view(np.int64))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
-
     def feed_stream(self, codes: np.ndarray, offsets: np.ndarray,
                     base: int = 0):
         """Scan a flat host stream (codes 0..3, read offsets) chunk by chunk
@@ -291,27 +285,23 @@ class ShardedModsetBuilder:
         """Scan the chunks of ``codes`` that start at ``starts`` (a chunk
         past the end scans zero words and emits nothing, but joins every
         collective), each at stream position ``base`` + its start."""
-        L = native_lib()
         k = self.sh.k
         n_total = len(codes)
         codes = np.ascontiguousarray(codes).view(np.uint8)
         offsets = np.ascontiguousarray(offsets, np.int64)
         C = self.chunk
-        NW = C // 32
         emitted = self.total_emitted
         # pk_valid_words clears bits up to n_total: cover the whole stream
         with profiling.span("count.validity"):
             vwords = np.empty(-(-max(max(starts) + C, n_total) // 64),
                               np.uint64)
-            L.pk_valid_words(offsets, len(offsets) - 1, n_total, k, vwords,
-                             len(vwords))
+            native_lib().pk_valid_words(offsets, len(offsets) - 1, n_total,
+                                        k, vwords, len(vwords))
         for st in starts:
             with profiling.span("count.pack"):
-                seg = codes[st:st + C + k - 1]
-                sw = np.empty(NW + 2, np.uint64)
-                L.pk_pack2(np.ascontiguousarray(seg), len(seg), sw, NW + 2)
-                inputs = (self._put(sw),
-                          self._put(vwords[st // 64:st // 64 + C // 64]))
+                inputs = put_chunk(codes[st:st + C + k - 1],
+                                   vwords[st // 64:(st + C) // 64],
+                                   self.device)
             with profiling.span("count.scan"):
                 out = self._route(inputs, base + st)
             if self._buffered_rows() + self._recv_rows() > self.max_buffer_rows:

@@ -35,9 +35,10 @@ Otherwise ``span`` and ``count`` record nothing and cost a flag test.
 
 While the job is profiled, each span is marked once in the trace as
 ``record_function("stage:<name>")``, by the hook ``stage``: ``span``
-enters ``profiling.stage(name)`` as bound at that moment, so a benchmark
-that puts its own recorder in ``stage``'s place sees every span, and marks
-it itself.  The hook goes once the benchmark reads ``jobs()`` instead.
+enters ``profiling.stage(name)`` as bound at that moment, and reads its
+bounds inside it, so a benchmark that puts its own recorder in ``stage``'s
+place sees every span, and marks it itself.  The hook goes once the
+benchmark reads ``jobs()`` instead.
 """
 
 import atexit
@@ -126,16 +127,20 @@ def _recorded(name):
     loc = _local
     if getattr(loc, "job", None) != rec.id:
         loc.job, loc.stack = rec.id, []
-    s = Span(name, loc.stack[-1] if loc.stack else 0, rec.id,
-             threading.get_ident(), time.perf_counter_ns())
-    rec.spans.append(s)
-    loc.stack.append(len(rec.spans) - 1)
-    try:
-        with stage(name):
+    # the bounds are read inside the mark: what the span does to set
+    # itself up (an allocation, a collection the allocation sets off)
+    # falls outside both, not between a bound and its mark's
+    with stage(name):
+        start = time.perf_counter_ns()
+        s = Span(name, loc.stack[-1] if loc.stack else 0, rec.id,
+                 threading.get_ident(), start)
+        rec.spans.append(s)
+        loc.stack.append(len(rec.spans) - 1)
+        try:
             yield
-    finally:
-        s.end_ns = time.perf_counter_ns()
-        loc.stack.pop()
+        finally:
+            loc.stack.pop()
+            s.end_ns = time.perf_counter_ns()
 
 
 def count(name, n):
@@ -177,14 +182,16 @@ def job(name):
     rec = Job(name)
     _current, _marking = rec, profiled or prof is not None
     _local.job, _local.stack = rec.id, [0]
-    root = Span(name, None, rec.id, threading.get_ident(),
-                time.perf_counter_ns())
-    rec.spans.append(root)
     try:
         with stage(name):
-            yield
+            start = time.perf_counter_ns()
+            root = Span(name, None, rec.id, threading.get_ident(), start)
+            rec.spans.append(root)
+            try:
+                yield
+            finally:
+                root.end_ns = time.perf_counter_ns()
     finally:
-        root.end_ns = time.perf_counter_ns()
         _current, _marking = None, False
         for k, n in _build.LAUNCHES.items():
             if n != launches.get(k, 0):

@@ -1,5 +1,5 @@
-"""Per-chunk programs of the port (densify_ref, scan_kmers_body, scan_chunk)
-vs the JAX package's _densify_cols_search, _scan_chunk_kmers and
+"""Per-chunk programs of the port (densify_ref, and scan_chunk without and
+with meta) vs the JAX package's _densify_cols_search, _scan_chunk_kmers and
 _scan_chunk, bit for bit, overflow (total == -1) included."""
 
 import shutil
@@ -24,9 +24,7 @@ from modimizer_tpu.ops.packed import pack_sw  # noqa: E402
 from modimizer_tpu.ops.seqhash import BLK_COMPACT, scan_bo  # noqa: E402
 from modimizer_tpu_torch.ops.device_scan import (DENSIFY_TILE,  # noqa: E402
                                                  densify, densify_ref,
-                                                 prefix_valid_words,
-                                                 scan_chunk,
-                                                 scan_kmers_body)
+                                                 scan_chunk)
 from modimizer_tpu_torch.ops import consts as port_consts  # noqa: E402
 from modimizer_tpu_torch.ops.scan_kernel import scan_compact_ref  # noqa: E402
 
@@ -300,8 +298,10 @@ def test_scan_kmers_body_equals_jax(k, w):
     for seed, poly_a, cap_ in ((k, False, cap), (k + 1, True, cap),
                                (k + 2, False, 128)):
         _codes, sw, vw = chunk(k, C, seed, poly_a)
-        dk, tot = scan_kmers_body(t64(sw), t64(vw), k=k, w=w,
-                                  factor1=sh.factor1, bo=bo, cap=cap_)
+        dk, dm, tot = scan_chunk(t64(sw), t64(vw), k=k, w=w,
+                                 factor1=sh.factor1, bo=bo, cap=cap_,
+                                 with_meta=False)
+        assert dm is None
         jk, jtot = _scan_chunk_kmers(jnp.asarray(sw), jnp.asarray(vw), k=k,
                                      w=w, factor1=sh.factor1, bo=bo,
                                      cap=cap_)
@@ -323,20 +323,14 @@ def test_scan_chunk_equals_jax(k, w, m_cut):
     for poly_a in (False, True):
         codes, _sw, _vw = chunk(k, C, k + m_cut, poly_a)
         sw = pack_sw(codes, C // 32 + 2)
-        dk, dm, tot = scan_chunk(t64(sw), m, k=k, w=w, factor1=sh.factor1,
-                                 bo=bo, cap=cap)
+        # the prefix mask _scan_chunk builds from m, as bit-words
+        vw = np.packbits(np.arange(C) < m, bitorder="little").view(np.uint64)
+        dk, dm, tot = scan_chunk(t64(sw), t64(vw), k=k, w=w,
+                                 factor1=sh.factor1, bo=bo, cap=cap,
+                                 with_meta=True)
         jk, jm, jtot = _scan_chunk(jnp.asarray(sw), jnp.int32(m), k=k, w=w,
                                    factor1=sh.factor1, bo=bo, cap=cap)
         assert int(tot) == int(jtot)
         assert np.array_equal(dk.numpy().view(np.uint64), widen(jk))
         assert np.array_equal(dm.numpy().view(np.uint32), np.asarray(jm))
         assert (int(tot) == -1) == poly_a
-
-
-@pytest.mark.parametrize("m", [0, 1, 63, 64, 65, 1000, 4096])
-def test_prefix_valid_words(m):
-    C = 4096
-    bits = np.unpackbits(
-        prefix_valid_words(m, C, torch.device("cpu")).numpy().view(np.uint8),
-        bitorder="little").astype(bool)
-    assert np.array_equal(bits, np.arange(C) < m)

@@ -5,7 +5,7 @@ root span a job, every span inside its parent and tagged with its job id;
 the counters equal the job's sizes; nothing is recorded with recording
 off; the benchmark's stand-in for ``profiling.stage`` still sees every
 span; under a CPU ``torch.profiler`` each span, put on the profiler's
-clock through its job's anchor, lies within 1 ms of its ``stage:`` mark;
+clock through its job's anchor, lies within its ``stage:`` mark to 1 ms;
 self times; and the ``MODIMIZER_STAGES`` report."""
 
 import contextlib
@@ -197,9 +197,15 @@ def test_the_benchmarks_stage_recorder_still_sees_every_span(data,
 
 
 def test_spans_lie_on_the_profilers_clock(data, recorder, monkeypatch):
-    """Through the job's anchor, each span's start and end lie within 1 ms
-    of its stage: mark's (``trace_start_ns() + time_range``), and each
-    span is marked once."""
+    """Through the job's anchor, each span lies within its stage: mark
+    (``trace_start_ns() + time_range``) to 1 ms at either end, and each
+    span is marked once.  The recorder reads a span's bounds inside its
+    mark, so on a right anchor the span starts no earlier than the mark
+    and ends no later, however long the interpreter takes between a mark's
+    stamp and the recorder's read (a collection, a preemption); an anchor
+    off by more than 1 ms either way puts some span's tight start or end
+    outside its mark.  The median gap between a bound and its mark's is
+    under 1 ms."""
     monkeypatch.delenv("MODIMIZER_STAGES")     # the profiler turns it on
     for _ in range(2):           # the first marks of a process start late
         with torch.profiler.profile(
@@ -217,11 +223,17 @@ def test_spans_lie_on_the_profilers_clock(data, recorder, monkeypatch):
     for s in rec.spans:
         by_name.setdefault(s.name, []).append(s)
     assert sorted(marks) == sorted(by_name)
+    gaps = []
     for name, spans in by_name.items():
         assert len(marks[name]) == len(spans)
         for s, (m0, m1) in zip(spans, sorted(marks[name])):
-            assert abs(rec.clock_ns(s.start_ns) - m0) <= 1_000_000, name
-            assert abs(rec.clock_ns(s.end_ns) - m1) <= 1_000_000, name
+            assert m0 - 1_000_000 <= rec.clock_ns(s.start_ns), name
+            assert rec.clock_ns(s.end_ns) <= m1 + 1_000_000, name
+            gaps += [rec.clock_ns(s.start_ns) - m0,
+                     m1 - rec.clock_ns(s.end_ns)]
+    # bounds read late or early as a rule show in the median gap; one
+    # stretched by a collection or a preemption does not
+    assert np.median(gaps) <= 1_000_000
 
 
 def test_self_time_is_the_span_less_its_childrens_union():

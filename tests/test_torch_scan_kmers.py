@@ -156,3 +156,82 @@ def test_device_policy_without_cuda(monkeypatch):
     monkeypatch.setenv("MODIMIZER_SCAN", "device")
     with pytest.raises(RuntimeError, match="CUDA"):
         ModimizerScanner(sh)
+
+
+def _layout(name, k, C, rng, wide_run):
+    """(codes, offsets) of one read-boundary layout over a few chunks of C
+    positions (see test_chunk_pipeline_at_read_boundaries)."""
+    if name == "short_and_empty":
+        # reads shorter than k and empty reads among ordinary ones
+        pool = [0, 1, k - 2, k - 1, k, k + 1]
+        lens = []
+        while sum(lens) < 2 * C + C // 2:
+            lens.append(int(rng.choice(pool)) if rng.random() < 0.5
+                        else int(rng.integers(30, 300)))
+        cuts = np.cumsum(lens)
+    elif name == "ends_on_chunk_end":
+        # reads ending on a chunk's last position, the last chunk full
+        cuts = np.unique(np.concatenate(
+            [rng.integers(1, 3 * C, 3 * C // 200), [C, 2 * C, 3 * C]]))
+    elif name == "straddle":
+        # one read over a chunk boundary, the stream ending mid-chunk
+        n = 2 * C + 777
+        cuts = np.unique(np.concatenate(
+            [rng.integers(1, n, n // 300), [n]]))
+        cuts = np.concatenate([cuts[cuts < C - 1000], [C - 1000, C + 1000],
+                               cuts[cuts > C + 1000]])
+    else:                       # "poly_a"
+        n = 2 * C + C // 2
+        cuts = np.unique(np.concatenate(
+            [rng.integers(1, n, n // 250), [C // 4, C // 2, C - 50,
+                                            2 * C + 50, n]]))
+        cuts = cuts[(cuts <= C - 50) | (cuts >= 2 * C + 50)]
+    offsets = np.concatenate([[0], cuts]).astype(np.int64)
+    codes = rng.integers(0, 4, offsets[-1]).astype(np.uint8)
+    if name == "poly_a":
+        # a run that overflows one block's bo but not the wide retry's,
+        # and a read of As over all of chunk 1: the host rescan
+        codes[C // 4 + 100:C // 4 + 100 + wide_run] = 0
+        codes[C - 50:2 * C + 50] = 0
+    return codes, offsets
+
+
+@pytest.mark.parametrize("layout", ["short_and_empty", "ends_on_chunk_end",
+                                    "straddle", "poly_a"])
+@pytest.mark.parametrize("k,w,C", [(16, 16, 1 << 13), (19, 31, 1 << 14)])
+def test_chunk_pipeline_at_read_boundaries(k, w, C, layout):
+    """Every chunk carries its read-validity words to the kernel: no row
+    that crosses a read boundary leaves the card, so scan_stream and
+    scan_batch give the JAX scanner's device path's rows and the native
+    host scan's, on reads shorter than k, empty reads, reads ending on a
+    chunk's last position, a read over a chunk boundary with the stream
+    ending mid-chunk, and poly-A reads that take the wide retry and the
+    host rescan."""
+    from modimizer_tpu.io.seqio import SeqBatch
+    sh = Seqhash.create(k, w, 17)
+    dev = _port(sh, C)
+    wide_bo = dev._wide()[0]
+    codes, offsets = _layout(layout, k, C, np.random.default_rng(k + w),
+                             (dev.bo + wide_bo) // 2 + k - 1)
+    host = ModimizerScanner(sh, host=True)
+    jdev = JaxScanner(sh, chunk=C, host_threshold=0)
+    want = host.scan_stream(codes, offsets)
+    assert len(want[0]) > 0
+    for got in (dev.scan_stream(codes, offsets),
+                jdev.scan_stream(codes, offsets)):
+        for g, h in zip(got, want):
+            assert np.array_equal(g, h)
+    batch = SeqBatch(codes=codes.astype(np.int8), offsets=offsets)
+    want_b = host.scan_batch(batch)
+    for got in (dev.scan_batch(batch), jdev.scan_batch(batch)):
+        for g, h in zip(got, want_b):
+            assert np.array_equal(g, h)
+    kb = _port(sh, C)
+    assert np.array_equal(kb.scan_kmers(codes, offsets), want[0])
+    assert np.array_equal(kb.scan_kmers_batches(_batches(codes, offsets, 3)),
+                          want[0])
+    if layout == "poly_a":
+        assert dev.n_wide > dev.n_fallback > 0
+        assert kb.n_wide > kb.n_fallback > 0
+    else:
+        assert dev.n_wide == dev.n_fallback == 0

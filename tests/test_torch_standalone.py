@@ -244,10 +244,6 @@ def test_scanner_host_methods_match(k, w):
     for a, b in zip(port_ops.first_encounter_unique(kms),
                     jax_ops.first_encounter_unique(kms)):
         assert np.array_equal(a, b)
-    gpos = np.arange(0, len(codes), 7, dtype=np.int64)
-    for a, b in zip(port_ops._validity_filter(gpos, offsets, k),
-                    jax_ops._validity_filter(gpos, offsets, k)):
-        assert np.array_equal(a, b)
 
 
 def _run(main, argv):
