@@ -47,13 +47,16 @@ def _find_overlaps(rs, name, out_f, *front, device=None):
     the readset's scan (else ``device``, the CLI's), then the phase-2
     engine ``name``_pre, when ``_use_device_overlaps`` says so; else the
     native walk ``name``.  Stage timers (MODIMIZER_STAGES=1): asm.phase1,
-    asm.phase2, asm.walk."""
+    asm.phase2, asm.walk; counter phase2.pairs (the candidate rows the
+    answer pass of -b and -c answered)."""
     if _use_device_overlaps(rs):
         with profiling.span("asm.phase1"):
             cy, ch, co = rs.device_overlap_candidates(
                 device=rs.device if rs.device is not None else device)
         with profiling.span("asm.phase2"):
-            rs.native_call(name + "_pre", out_f, *front, cy, ch, co)
+            pairs = rs.native_call(name + "_pre", out_f, *front, cy, ch, co)
+        if pairs is not None:
+            profiling.count("phase2.pairs", pairs)
     else:
         with profiling.span("asm.walk"):
             rs.native_call(name, out_f, *front)

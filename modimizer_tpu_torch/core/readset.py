@@ -231,7 +231,8 @@ class Readset:
                 np.ascontiguousarray(off, np.int64))
 
     def native_call(self, name, out_f, *extra):
-        """Run a native modasm command with exact stream interleaving."""
+        """Run a native modasm command with exact stream interleaving;
+        returns what the command returns."""
         import sys
         sys.stdout.flush()
         out_f.flush()
@@ -240,7 +241,7 @@ class Readset:
         except (AttributeError, OSError):
             fd_out = sys.stdout.fileno()
         v = self._view(fd_out, sys.stdout.fileno())
-        getattr(native_lib(), name)(ctypes.byref(v), *extra)
+        return getattr(native_lib(), name)(ctypes.byref(v), *extra)
 
     # ---------------- stats (modasm.c:193-256) ----------------
 

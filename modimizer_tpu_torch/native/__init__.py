@@ -134,15 +134,21 @@ def _declare(L):
 
     i64pp = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     cand = [u32p, u16p, i64pp]
-    for name, extra in [
-            ("rs_mark_bad_pre", cand),
-            ("rs_mark_contained_pre", cand),
-            ("rs_cluster_pre", cand),
-            ("rs_overlaps_every_pre", [c.c_int64] + cand),
+    for name, extra, res in [
+            ("rs_mark_bad_pre", cand, c.c_int64),
+            ("rs_mark_contained_pre", cand, c.c_int64),
+            ("rs_cluster_pre", cand, None),
+            ("rs_overlaps_every_pre", [c.c_int64] + cand, None),
     ]:
         fn = getattr(L, name)
-        fn.restype = None
+        fn.restype = res
         fn.argtypes = [vp] + extra
+    # phase 2's answer pass: view, candidates, skipBad; per row isPlus,
+    # isContained, nBadOrder, nBadFlip; per read nRows, nRepeat; returns
+    # the rows answered
+    L.rs_phase2_answers.restype = c.c_int64
+    L.rs_phase2_answers.argtypes = [vp] + cand + [c.c_int, u8p, u8p, u16p,
+                                                  u16p, i32p, i32p]
 
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     L.sh_scan_emit.restype = c.c_int64

@@ -517,11 +517,69 @@ static void findOverlaps(RSView *v, I64 ix, int level, FILE *fo,
   foPhase2(v, ix, level, fo, olap, nRepeat);
 }
 
-// phase 2 of findOverlaps (modasm.c:353-418): per-candidate orientation
-// vote, order-violation scan, containment, flags and RR/RH prints.  Shared
-// verbatim by the serial walk above and the device-phase-1 path below;
-// expects olap = candidates sorted by descending (U16) nHit with the
-// burned slot 0 at the END, and s_hmap/s_xPos primed for read ix.
+// One candidate pair's answers (modasm.c:357-397): the orientation vote
+// over y's hits through x's map, then the order and containment scan on
+// the winning strand; all zero where neither strand wins.  hmap[m] is
+// (U16)(j + 1) for x's first row j of copy-1 mod m, xPos[j + 1] the
+// position of x's hit j.  nPlus and nMinus come back as the scan leaves
+// them (less the bad orders), for the RH line.
+struct PairAnswers {
+  U8 isPlus, isContained;
+  U16 nBadOrder, nBadFlip;
+  int nPlus, nMinus;
+};
+
+static inline PairAnswers pairAnswers(const RSView *v, const U32 *hx,
+                                      int nHitX, int xLen, const U16 *hmap,
+                                      const U32 *xPos, U32 iy) {
+  PairAnswers a = {0, 0, 0, 0, 0, 0};
+  int nHitY = v->nHit[iy];
+  int yLen = v->rlen[iy];
+  const U32 *hy = readHits(v, iy);
+  const U16 *dy = readDx(v, iy);
+  U16 ihx;
+  for (int j = 0; j < nHitY; ++j)
+    if ((ihx = hmap[hy[j] & TOPMASK])) {
+      if ((hy[j] & TOPBIT) == (hx[ihx - 1] & TOPBIT)) ++a.nPlus;
+      else ++a.nMinus;
+    }
+  double yPos = dy[0];
+  if (a.nPlus > a.nMinus) {
+    a.isPlus = 1;
+    a.nBadFlip = (U16)a.nMinus;
+    int last = 0, lastDiff = 0;
+    for (int j = 0; j < nHitY; ++j) {
+      if ((ihx = hmap[hy[j] & TOPMASK])) {
+        lastDiff = (int)((double)xPos[ihx] - yPos);
+        if (!last && lastDiff < 0) a.isContained = 1;  // x starts in y
+        if (ihx < last) { ++a.nBadOrder; --a.nPlus; }
+        last = ihx;
+      }
+      if (j + 1 < nHitY) yPos += dy[j + 1];
+    }
+    if (a.isContained && xLen - lastDiff > yLen) a.isContained = 0;
+  } else if (a.nMinus && !a.nPlus) {
+    int last = nHitX, lastDiff = 0;
+    for (int j = 0; j < nHitY; ++j) {
+      if ((ihx = hmap[hy[j] & TOPMASK])) {
+        // x->len - xPos[ihx] promotes to unsigned in the reference
+        lastDiff = (int)((double)(U32)((U32)xLen - xPos[ihx]) - yPos);
+        if (!last && lastDiff < 0) a.isContained = 1;
+        if (ihx > last) { ++a.nBadOrder; --a.nMinus; }
+        last = ihx;
+      }
+      if (j + 1 < nHitY) yPos += dy[j + 1];
+    }
+    if (a.isContained && xLen - lastDiff > yLen) a.isContained = 0;
+  }
+  return a;
+}
+
+// phase 2 of findOverlaps (modasm.c:353-418): per-candidate answers, then
+// flags and RR/RH prints.  Shared verbatim by the serial walk above and the
+// device-phase-1 path below; expects olap = candidates sorted by
+// descending (U16) nHit with the burned slot 0 at the END, and
+// s_hmap/s_xPos primed for read ix.
 static void foPhase2(RSView *v, I64 ix, int level, FILE *fo,
                      std::vector<Olap> &olap, int nRepeat) {
   int nHitX = v->nHit[ix];
@@ -533,57 +591,20 @@ static void foPhase2(RSView *v, I64 ix, int level, FILE *fo,
   // last element (the burned slot, sorted to the end) is never examined
   for (Olap *o = olap.data(); k < olap.size(); ++k, ++o) {
     if (o->nHit < 3) break;
-    U32 iy = o->iy;
-    if (v->bad[iy]) continue;
-    int nHitY = v->nHit[iy];
-    int yLen = v->rlen[iy];
-    const U32 *hy = readHits(v, iy);
-    const U16 *dy = readDx(v, iy);
-    int nPlus = 0, nMinus = 0;
-    U16 ihx;
-    for (int j = 0; j < nHitY; ++j)
-      if ((ihx = s_hmap[hy[j] & TOPMASK])) {
-        if ((hy[j] & TOPBIT) == (hx[ihx - 1] & TOPBIT)) ++nPlus;
-        else ++nMinus;
-      }
-    double yPos = dy[0];
-    if (nPlus > nMinus) {
-      o->isPlus = 1;
-      o->nBadFlip = (U16)nMinus;
-      int last = 0, lastDiff = 0;
-      for (int j = 0; j < nHitY; ++j) {
-        if ((ihx = s_hmap[hy[j] & TOPMASK])) {
-          lastDiff = (int)((double)s_xPos[ihx] - yPos);
-          if (!last && lastDiff < 0) o->isContained = 1;  // x starts in y
-          if (ihx < last) { ++o->nBadOrder; --nPlus; }
-          last = ihx;
-        }
-        if (j + 1 < nHitY) yPos += dy[j + 1];
-      }
-      if (o->isContained && xLen - lastDiff > yLen) o->isContained = 0;
-    } else if (nMinus && !nPlus) {
-      o->isPlus = 0;
-      o->nBadFlip = (U16)nPlus;
-      int last = nHitX, lastDiff = 0;
-      for (int j = 0; j < nHitY; ++j) {
-        if ((ihx = s_hmap[hy[j] & TOPMASK])) {
-          // x->len - xPos[ihx] promotes to unsigned in the reference
-          lastDiff = (int)((double)(U32)((U32)xLen - s_xPos[ihx]) - yPos);
-          if (!last && lastDiff < 0) o->isContained = 1;
-          if (ihx > last) { ++o->nBadOrder; --nMinus; }
-          last = ihx;
-        }
-        if (j + 1 < nHitY) yPos += dy[j + 1];
-      }
-      if (o->isContained && xLen - lastDiff > yLen) o->isContained = 0;
-    }
+    if (v->bad[o->iy]) continue;
+    PairAnswers a = pairAnswers(v, hx, nHitX, xLen, s_hmap.data(),
+                                s_xPos.data(), o->iy);
+    o->isPlus = a.isPlus;
+    o->isContained = a.isContained;
+    o->nBadOrder = a.nBadOrder;
+    o->nBadFlip = a.nBadFlip;
     if (o->nBadOrder || o->nBadFlip) ++nBad;
     else ++nGood;
 
     if (level > 1) {
-      fprintf(fo, "RH\t%u\tlen %d\t%s\t+ %d\t- %d\tbadOrder %d", o->iy, yLen,
-              (o->nBadOrder + o->nBadFlip) ? "BAD" : "GOOD", nPlus, nMinus,
-              o->nBadOrder);
+      fprintf(fo, "RH\t%u\tlen %d\t%s\t+ %d\t- %d\tbadOrder %d", o->iy,
+              v->rlen[o->iy], (o->nBadOrder + o->nBadFlip) ? "BAD" : "GOOD",
+              a.nPlus, a.nMinus, o->nBadOrder);
       fprintf(fo, "\t%s\n", o->isContained ? "CONTAINED" : "OVERLAP");
     }
   }
@@ -621,12 +642,13 @@ extern "C" void rs_overlaps_every(RSView *v, I64 d) {
 
 // ------------------------------------------------------------------
 // device-phase-1 variants: candidate discovery + counting runs batched on
-// the TPU (parallel/overlaps.py self-join) and arrives here as per-read
+// the device (parallel/overlaps.py self-join) and arrives here as per-read
 // CSR candidate lists ALREADY in reference order (descending wrapped-U16
 // nHit over first-encounter order, the stable_sort result at
-// modasm.c:353); this side re-primes s_hmap/s_xPos (O(nHitX)) and runs
-// the identical phase 2, so the sequential cross-read bad-flag semantics
-// (bad[iy] checks see exactly the flags set by lower ix) are preserved.
+// modasm.c:353).  -o2 and -u re-prime s_hmap/s_xPos (O(nHitX)) and run
+// the identical phase 2 (findOverlapsPre), so the sequential cross-read
+// bad-flag semantics (bad[iy] checks see exactly the flags set by lower
+// ix) are preserved; -b and -c split it in two steps (below).
 // ------------------------------------------------------------------
 
 static void findOverlapsPre(RSView *v, I64 ix, int level, FILE *fo,
@@ -659,29 +681,150 @@ static void findOverlapsPre(RSView *v, I64 ix, int level, FILE *fo,
   foPhase2(v, ix, level, fo, olap, nRepeat);
 }
 
-extern "C" void rs_mark_bad_pre(RSView *v, const U32 *candY,
-                                const U16 *candHit, const I64 *candOff) {
+// ------------------------------------------------------------------
+// phase 2 of -b and -c on device candidates, in two steps.  A pair's
+// answers (isPlus, nBadFlip, nBadOrder, isContained) depend only on the
+// hits of x and y and on the copy-1 flags, and a read's nRepeat only on
+// its own hits: the answer pass computes them for every read at once,
+// OpenMP over reads.  What depends on earlier reads -- the skip of a y
+// already bad, the nGood/nBad counts that follow and the no-match flags
+// they set -- is O(pairs) and runs after it in read order, on one thread,
+// from the stored answers (phase2Flags).  Same flags, contained[] and
+// bytes as findOverlapsPre + foPhase2.
+// ------------------------------------------------------------------
+
+// One read x's answers: s_hmap/s_xPos as findOverlapsPre primes them, but
+// a thread's own (hmap zero between reads: only x's entries are reset),
+// no bad[] read or written; the candidate rows up to the first wrapped
+// U16 count < 3 answered as foPhase2 does.  Returns the rows answered.
+static int phase2Read(const RSView *v, I64 ix, const U32 *candY,
+                      const U16 *candHit, I64 nCand, std::vector<U16> &hmap,
+                      std::vector<U32> &xPos, U8 *isPlus, U8 *isContained,
+                      U16 *nBadOrder, U16 *nBadFlip, int32_t *nRepeat) {
+  int nHitX = v->nHit[ix];
+  const U32 *hx = readHits(v, ix);
+  const U16 *dxx = readDx(v, ix);
+  xPos.assign((size_t)nHitX + 1, 0);
+  for (int j = 0; j < nHitX; ++j) {
+    U32 hxx = hx[j] & TOPMASK;
+    xPos[j + 1] = xPos[j] + dxx[j];
+    if (!msIsCopy1(v, hxx)) continue;
+    if (hmap[hxx]) { ++*nRepeat; continue; }
+    hmap[hxx] = (U16)(j + 1);
+  }
+  int n = 0;
+  for (; n < nCand && candHit[n] >= 3; ++n) {
+    PairAnswers a = pairAnswers(v, hx, nHitX, v->rlen[ix], hmap.data(),
+                                xPos.data(), candY[n]);
+    isPlus[n] = a.isPlus;
+    isContained[n] = a.isContained;
+    nBadOrder[n] = a.nBadOrder;
+    nBadFlip[n] = a.nBadFlip;
+  }
+  for (int j = 0; j < nHitX; ++j) hmap[hx[j] & TOPMASK] = 0;
+  return n;
+}
+
+// The answer pass over reads 1..nReads-1 (skipBad: only those with
+// bad[ix] == 0), on OpenMP's threads.
+// Per candidate row, aligned with candY: isPlus, isContained, nBadOrder,
+// nBadFlip (zero past a read's answered rows and in reads not visited);
+// per read: nRows, the rows answered, and nRepeat.  The result does not
+// depend on the thread count.  Returns the rows answered.
+extern "C" I64 rs_phase2_answers(const RSView *v, const U32 *candY,
+                                 const U16 *candHit, const I64 *candOff,
+                                 int skipBad, U8 *isPlus,
+                                 U8 *isContained, U16 *nBadOrder,
+                                 U16 *nBadFlip, int32_t *nRows,
+                                 int32_t *nRepeat) {
+  const I64 nr = v->nReads, rows = candOff[nr];
+  std::fill(isPlus, isPlus + rows, 0);
+  std::fill(isContained, isContained + rows, 0);
+  std::fill(nBadOrder, nBadOrder + rows, 0);
+  std::fill(nBadFlip, nBadFlip + rows, 0);
+  std::fill(nRows, nRows + nr, 0);
+  std::fill(nRepeat, nRepeat + nr, 0);
+  I64 total = 0;
+#ifdef _OPENMP
+#pragma omp parallel reduction(+ : total)
+#endif
+  {
+    std::vector<U16> hmap((size_t)v->msMax + 1, 0);
+    std::vector<U32> xPos;
+#ifdef _OPENMP
+#pragma omp for schedule(dynamic, 8)
+#endif
+    for (I64 ix = 1; ix < nr; ++ix) {
+      if (skipBad && v->bad[ix]) continue;
+      const I64 o = candOff[ix];
+      nRows[ix] = phase2Read(v, ix, candY + o, candHit + o,
+                             candOff[ix + 1] - o, hmap, xPos, isPlus + o,
+                             isContained + o, nBadOrder + o, nBadFlip + o,
+                             nRepeat + ix);
+      total += nRows[ix];
+    }
+  }
+  return total;
+}
+
+struct Phase2 {
+  std::vector<U8> isPlus, isContained;
+  std::vector<U16> nBadOrder, nBadFlip;
+  std::vector<int32_t> nRows, nRepeat;
+  I64 pairs;
+  Phase2(const RSView *v, const U32 *candY, const U16 *candHit,
+         const I64 *candOff, int skipBad)
+      : isPlus(candOff[v->nReads]), isContained(candOff[v->nReads]),
+        nBadOrder(candOff[v->nReads]), nBadFlip(candOff[v->nReads]),
+        nRows(v->nReads), nRepeat(v->nReads) {
+    pairs = rs_phase2_answers(v, candY, candHit, candOff, skipBad,
+                              isPlus.data(), isContained.data(),
+                              nBadOrder.data(), nBadFlip.data(),
+                              nRows.data(), nRepeat.data());
+  }
+};
+
+// The in-order step for read ix: BAD_REPEAT as the priming sets it, then
+// foPhase2's walk over the answered rows, skipping a y bad at this moment
+// (its answers count as zero), and the no-match flags.  `use(i)` sees each
+// row not skipped.
+template <class Use>
+static void phase2Flags(RSView *v, I64 ix, const Phase2 &a, const U32 *candY,
+                        const I64 *candOff, Use use) {
+  if (a.nRepeat[ix]) v->bad[ix] |= BAD_REPEAT;
+  int nSeen = 0;
+  for (I64 i = candOff[ix]; i < candOff[ix] + a.nRows[ix]; ++i) {
+    if (v->bad[candY[i]]) continue;
+    ++nSeen;
+    use(i);
+  }
+  if (!nSeen) {
+    v->bad[ix] |= BAD_NOMATCH;
+    if (v->nHit[ix] < 10) v->bad[ix] |= BAD_LOWHIT;
+    else if (readNCopy(v, ix)[1] < 10) v->bad[ix] |= BAD_LOWCOPY1;
+  }
+}
+
+// Returns the candidate rows the answer pass answered.
+extern "C" I64 rs_mark_bad_pre(RSView *v, const U32 *candY,
+                               const U16 *candHit, const I64 *candOff) {
   Sinks s = sinksOpen(v);
   I64 nr = v->nReads;
   for (I64 ix = 1; ix < nr; ++ix) v->bad[ix] = 0;
+  const Phase2 a(v, candY, candHit, candOff, 0);
 
   std::vector<int> badList((size_t)nr * 10, 0);
   std::vector<int> nBadArr((size_t)nr, 0), lBad((size_t)nr, 0);
-  std::vector<Olap> olap;
 
-  for (I64 ix = 1; ix < nr; ++ix) {
-    findOverlapsPre(v, ix, 0, s.out, olap, candY + candOff[ix],
-                    candHit + candOff[ix], candOff[ix + 1] - candOff[ix]);
-    for (size_t i = 0; i < olap.size(); ++i) {
-      Olap *o = &olap[i];
-      if (o->nBadFlip || o->nBadOrder) {
-        int iy = (int)o->iy;
+  for (I64 ix = 1; ix < nr; ++ix)
+    phase2Flags(v, ix, a, candY, candOff, [&](I64 i) {
+      if (a.nBadFlip[i] || a.nBadOrder[i]) {
+        int iy = (int)candY[i];
         ++nBadArr[iy];
         if (nBadArr[iy] < 10 && lBad[ix] < 10)
           badList[10 * ix + lBad[ix]++] = iy;
       }
-    }
-  }
+    });
 
   int N = 0;
   for (I64 ix = 1; ix < nr; ++ix)
@@ -708,27 +851,28 @@ extern "C" void rs_mark_bad_pre(RSView *v, const U32 *candY,
     if (lBad[ix] > 0) { v->bad[ix] |= BAD_ORDER1; ++N; lBad[ix] = 0; }
   fprintf(s.so, "MB  %d with single bad overlaps\n", N);
   sinksClose(s);
+  return a.pairs;
 }
 
-extern "C" void rs_mark_contained_pre(RSView *v, const U32 *candY,
-                                      const U16 *candHit,
-                                      const I64 *candOff) {
+// The answer pass skips the reads bad when it starts: within the pass bad
+// flags are only added, so every read the in-order step visits has its
+// answers.  Returns the candidate rows answered.
+extern "C" I64 rs_mark_contained_pre(RSView *v, const U32 *candY,
+                                     const U16 *candHit,
+                                     const I64 *candOff) {
   Sinks s = sinksOpen(v);
   int nContained = 0, nNotContained = 0;
   U64 totLen = 0;
-  std::vector<Olap> olap;
+  const Phase2 a(v, candY, candHit, candOff, 1);
   for (I64 ix = 1; ix < v->nReads; ++ix) {
     if (v->bad[ix]) continue;
-    findOverlapsPre(v, ix, 0, s.out, olap, candY + candOff[ix],
-                    candHit + candOff[ix], candOff[ix + 1] - candOff[ix]);
     int maxHit = 0;
-    for (size_t io = 0; io < olap.size(); ++io) {
-      Olap *o = &olap[io];
-      if (o->iy == (U32)ix) continue;  // no self-containment
-      if (!o->isContained || o->nHit <= maxHit) continue;
-      v->contained[ix] = (int)o->iy;
-      maxHit = o->nHit;
-    }
+    phase2Flags(v, ix, a, candY, candOff, [&](I64 i) {
+      if (candY[i] == (U32)ix) return;  // no self-containment
+      if (!a.isContained[i] || candHit[i] <= maxHit) return;
+      v->contained[ix] = (int)candY[i];
+      maxHit = candHit[i];
+    });
     if (v->contained[ix]) ++nContained;
     else { ++nNotContained; totLen += (U64)v->rlen[ix]; }
   }
@@ -738,6 +882,7 @@ extern "C" void rs_mark_contained_pre(RSView *v, const U32 *candY,
           nContained, nNotContained,
           nNotContained ? totLen / (double)nNotContained : 0.);
   sinksClose(s);
+  return a.pairs;
 }
 
 extern "C" void rs_overlaps_every_pre(RSView *v, I64 d, const U32 *candY,

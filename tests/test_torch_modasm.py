@@ -3,7 +3,8 @@ device="cpu")``) against the JAX CLI's host path (the native serial
 findOverlaps walk), on tests/test_overlaps_pre.py's reads and modset: the
 port with ``MODIMIZER_OVERLAPS=device`` (the overlap self-join's plain
 version feeding the native *_pre engines) and ``=host``, on the arg lists
-of tests/test_overlaps_pre.py; ``-w`` then ``-r`` (the ``.mod`` and
+of tests/test_overlaps_pre.py and ``-o1`` (the RH lines of one read);
+``-w`` then ``-r`` (the ``.mod`` and
 ``.readset`` bytes; each package reads the other's files); and the port's
 size rule for the device overlaps."""
 
@@ -24,7 +25,7 @@ from tests.test_torch_overlaps import overlaps_pre_dataset  # noqa: E402
 from tests.util import strip_timing  # noqa: E402
 
 ARGS = [["-b", "-S", "-c", "-S"], ["-o2", "7"], ["-b", "-o2", "3"], ["-u"],
-        ["-b", "-u"]]
+        ["-b", "-u"], ["-o1", "151"], ["-b", "-o1", "40"]]
 
 
 def run(main, argv, path, **kw):
